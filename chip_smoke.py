@@ -8,13 +8,22 @@ Run from the root of a checkout, on a machine with the card and nvcc:
 Phases, each printing one JSON line:
 
   card      the card, torch and CUDA versions; builds every CUDA kernel of
-            the prove from groth16_tpu_torch/csrc (one nvcc per library, all
-            started together) with its registers and spills;
+            the bn254 and bls12_381 proves and setups and the op-rate
+            microbenchmark from groth16_tpu_torch/csrc (one nvcc per library,
+            all started together) with its registers and spills;
+  ubench    kernel V (the op-rate microbenchmark) for its seven operations at
+            N = 2^20, R = 2048, each held against its plain version (at R = 16
+            and at R = 2048) and timed, with the SASS each compiled to and the
+            SM clock under load; the measured 32-bit multiply rate (the
+            larger of the u32 and i32 multiply rates at R and at 8R) is the
+            denominator of every operations bound from here on (the published
+            rate is printed beside it);
   setup     exact-engine setup of the bn254 DummyCircuit with a 2^16 domain
             (65,534 constraints, 32,768 variables) from a fixed seed;
   kernels   K1 (mont_mul) and K4-K7 (point additions) at N = 2^16, and K2/K3
             (the MSM suffix scans) at the shapes of the prove's largest G1
-            window group and of its G2 window group, held digit for digit
+            window group and of its G2 window group (rows, chunks and every
+            step of each column), held digit for digit
             against their plain PyTorch versions on the same inputs (taken
             from the proving key's own points, with infinity, P+P, P+(-P)
             and (0, 0) lanes); each timed with CUDA events beside its plain
@@ -32,10 +41,25 @@ Phases, each printing one JSON line:
   capture_path  the same prover with msm_fused_scan=False, counters set to
             0 just before and read just after one prove (K6 and K7 must have
             launched); its proof must equal the main path's for the same r
-            and s.
+            and s;
+  device_setup  protocol.generator_torch.setup_device of the same 2^16 bn254
+            circuit with the same seed, counters set to 0 just before and read
+            just after (K1, K4, K5 must launch): its key must equal the exact
+            setup's element for element;
+  bls12_381_2p20  the reference's own bench size: the bls12_381 DummyCircuit
+            with a 2^20 domain set up on the device, 64 sampled points of each
+            query recomputed on the host from the scalars the device built,
+            the L = 26 builds of K4/K5 and of K2/K3 (at this prove's shapes,
+            every step) against their plain versions,
+            then TorchProver on cuda: one prove with the counters set to 0 just
+            before and read just after (K1-K5 must launch, no plain version on
+            the card), 2 steady prove_encoded_host calls, the last one
+            phase-timed; every proof must verify with public input 15 and fail
+            with 16.
 
-Then the `kernels` line, the card's name and power limit as nvidia-smi
-gives them, and last `{"ok": true, "device": {...}}`.  Any failed check
+Then the `kernels` line (every kernel with its launches on each path), the
+card's name and power limit as nvidia-smi gives them, and last
+`{"ok": true, "device": {...}}`.  Any failed check
 raises, so the run exits non-zero without that line; so does a run without
 a CUDA device or outside a checkout of the repository.
 """
@@ -55,13 +79,20 @@ CURVE = "bn254"
 LOG_N = 16
 N_KERNEL = 1 << 16
 REPS = 10
+BLS_CURVE = "bls12_381"
+BLS_LOG_N = 20
+UBENCH_N, UBENCH_R = 1 << 20, 2048
 
 # Published peaks of one H100 SXM (700 W): HBM at 3.35 TB/s; 32-bit
-# integer multiply-adds at 64 per SM per clock (the CUDA programming
-# guide's throughput table for compute capability 9.0) on 132 SMs at the
-# 1.98 GHz boost clock.
+# integer operations (multiply-add included) at 64 per SM per clock and
+# float32 ones at 128 (the CUDA programming guide's throughput table for
+# compute capability 9.0) on 132 SMs at the 1.98 GHz boost clock.
 HBM_BYTES_PER_S = 3.35e12
 INT32_MAD_PER_S = 132 * 64 * 1.98e9
+F32_OPS_PER_S = 132 * 128 * 1.98e9
+# The card's own 32-bit multiply rate, measured by the ubench phase (kernel
+# V); every operations bound after that phase divides by it.
+MEASURED = {"int32_mad_per_s": None}
 
 
 T0 = time.time()
@@ -86,16 +117,24 @@ def card_line() -> str:
 
 
 def ptxas_summary(log: str) -> dict:
-    """Registers and spill bytes per kernel from nvcc's -Xptxas -v report."""
-    out, name = {}, None
+    """Registers, stack frame and spill bytes per kernel from nvcc's
+    -Xptxas -v report (the kernel's own lines, not those of a function it
+    calls)."""
+    out, name, props = {}, None, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
             name = m.group(1)
             continue
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
-        if m and name:
-            out.setdefault(name, {}).update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            props = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name and props == name:
+            out.setdefault(name, {}).update(
+                stack_frame=int(m.group(1)), spill_stores=int(m.group(2)), spill_loads=int(m.group(3))
+            )
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
             out.setdefault(name, {})["registers"] = int(m.group(1))
@@ -118,19 +157,18 @@ def time_ms(fn, reps=REPS):
     return statistics.median(times)
 
 
-def cios_mads(L: int) -> int:
-    """32-bit multiply-adds that one Montgomery product of L 15-bit digits
-    needs: the 2 L^2 digit products (a_i * b_j and m * p_j), each one
-    multiply-add into a column, and the L products that derive m.  The
-    masks, shifts and carries around them are left out, so the bound is a
-    floor."""
-    return 2 * L * L + L
-
-
-def bound(nbytes: float, mads: float) -> tuple:
+def bound(nbytes: float, mads: float) -> dict:
+    """Least time for the work: the larger of the bytes over HBM's rate and
+    the multiply-adds (utils/profiling.py's counts) over the measured rate
+    (bound_ms, bound_by), and the same with the published rate
+    (bound_published_ms, bound_published_by)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = mads / INT32_MAD_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    out = {}
+    for key, rate in (("bound", MEASURED["int32_mad_per_s"]), ("bound_published", INT32_MAD_PER_S)):
+        t_ops = mads / rate * 1e3
+        t, by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+        out[f"{key}_ms"], out[f"{key}_by"] = t, by
+    return out
 
 
 def max_abs_err(got, want) -> int:
@@ -147,11 +185,16 @@ def phase_card():
     from groth16_tpu_torch.fields.spec import make_spec
     from groth16_tpu_torch.utils import cuda_build
 
-    c = get_curve(CURVE)
-    L = make_spec(c.p).n_limbs
-    names = cuda_build.curve_variants(L, c.fp2_nonresidue)
+    c, cb = get_curve(CURVE), get_curve(BLS_CURVE)
+    bls = cuda_build.curve_variants(make_spec(cb.p).n_limbs, cb.fp2_nonresidue)
+    # the capture-scan path (K6/K7) runs on bn254 only
+    names = (
+        cuda_build.curve_variants(make_spec(c.p).n_limbs, c.fp2_nonresidue)
+        + [n for n in bls if "_mixed_" not in n]
+        + ["ubench_ops"]
+    )
     t0 = time.time()
-    reports = cuda_build.build(names)
+    reports = cuda_build.build(dict.fromkeys(names))
     emit({
         "phase": "card",
         "card": card_line(),
@@ -165,6 +208,154 @@ def phase_card():
             for n, r in reports.items()
         },
     })
+
+
+def sass_families(path: str) -> dict:
+    """Instruction counts per kernel of a built library, by family, from
+    `cuobjdump -sass`: IMAD (multiplies; IMAD.MOV and IMAD.SHL are moves
+    and shifts, IMAD.IADD an add), IADD (IADD3, IMAD.IADD), and the other
+    mnemonics by their base name."""
+    import shutil
+
+    tool = shutil.which("cuobjdump") or os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    out = subprocess.run([tool, "-sass", path], capture_output=True, text=True, check=True, timeout=120).stdout
+    counts, fn = {}, None
+    for line in out.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            counts[fn] = {}
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[0-9T]+\s+)?([A-Z][A-Z0-9_.]*)", line)
+        if m and fn:
+            op = m.group(1)
+            if op.startswith(("IMAD.MOV", "IMAD.SHL")):
+                fam = "IMAD.MOV/SHL"
+            elif op.startswith(("IMAD.IADD", "IADD3")):
+                fam = "IADD"
+            else:
+                fam = op.split(".")[0]
+            counts[fn][fam] = counts[fn].get(fam, 0) + 1
+    return counts
+
+
+# per operation of V: the instruction family its chain must compile to, and
+# the fewest IMADs and instructions one operation takes (the CIOS step is a
+# multiply, a mask and a shift-add (LEA) and a three-input add; the 16-bit
+# multiply a multiply and one mask, each new value masked once for its two
+# uses).  The bound takes the larger of the IMADs at 64 per SM per clock and
+# all instructions at the issue limit, 4 schedulers x 32 lanes = 128 per SM
+# per clock (the float32 rate).
+UBENCH_SPEC = {
+    "u32_mul": ("IMAD", 1, 1),
+    "u32_add": ("IADD", 0, 1),
+    "u32_cios": ("IMAD", 1, 4),
+    "u16_mul": ("IMAD", 1, 2),
+    "f32_mul": ("FMUL", 0, 1),
+    "f32_fma": ("FFMA", 0, 1),
+    "i32_mul": ("IMAD", 1, 1),
+}
+
+
+def smi_during(fn, seconds: float) -> list:
+    """nvidia-smi samples (SM clock MHz, power W) every 100 ms while fn()
+    is launched back to back for `seconds`."""
+    import torch
+
+    proc = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw", "--format=csv,noheader,nounits", "-lms", "100"],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True,
+    )
+    try:
+        t_end = time.time() + seconds
+        while time.time() < t_end:
+            fn()
+        torch.cuda.synchronize()
+    finally:
+        proc.terminate()
+        out, _ = proc.communicate(timeout=30)
+    return [[float(v) for v in line.split(",")] for line in out.splitlines() if line.strip()]
+
+
+def phase_ubench(device):
+    """Kernel V on the card: each operation held against its plain version
+    (R = 16, where the f32 chains stay finite, and the timed R = 2048),
+    timed at N = 2^20, R = 2048, its SASS read back.  Sets the measured
+    32-bit multiply rate and returns the kernels-line entries."""
+    import torch
+
+    from groth16_tpu_torch.utils import cuda_build, ubench
+
+    sass = sass_families(cuda_build.library_path("ubench_ops"))
+    n, R = UBENCH_N, UBENCH_R
+    rows = {}
+    for op in ubench.OPS:
+        a, b = ubench.inputs(op.key, n, seed=ubench.OP_INDEX[op.key], device=device)
+        # f32: the errors at R = 16, where every chain is still finite
+        # (below 1e13; from R = 32 on they overflow), both R held to the
+        # relative tolerance
+        errs = []
+        for r in (16, R):
+            got = ubench.chains(op.key, a, b, r)
+            want = ubench.chains_plain(op.key, a, b, r)
+            torch.cuda.synchronize()
+            errs.append(ubench.agree(op.key, got, want))
+            if r == 16 and op.kind == "f32":
+                rel_err = float(((got - want).abs() / want.abs().clamp_min(1e-30)).max())
+        fam, imads, instrs = UBENCH_SPEC[op.key]
+        counts = sass[f"g16_ubench_{op.key}"]
+        if counts.get(fam, 0) < 16:
+            raise AssertionError(f"ubench {op.key}: the chain did not compile to {fam}: {counts}")
+        plain_ms = time_ms(lambda: ubench.chains_plain(op.key, a, b, R), reps=3)
+        per_op_s = max(imads / INT32_MAD_PER_S, instrs / F32_OPS_PER_S)
+        rows[op.key] = {"a": a, "b": b, "max_abs_err": errs[0] if op.kind == "f32" else max(errs),
+                        "max_rel_err": rel_err if op.kind == "f32" else 0.0,
+                        "plain_ms": plain_ms, "sass": counts, "per_op_s": per_op_s}
+    # the timed runs, counted: the counters are read just after
+    zero_counts()
+    for op in ubench.OPS:
+        row = rows[op.key]
+        row["ms"] = time_ms(lambda: ubench.chains(op.key, row["a"], row["b"], R))
+    launches = read_counts([op.key for op in ubench.OPS])
+    mul = rows["u32_mul"]
+    clocks = smi_during(lambda: ubench.chains("u32_mul", mul["a"], mul["b"], R), 2.0)
+    sm_mhz = statistics.median(c[0] for c in clocks) if clocks else None
+    rate_of = {k: R * n / (row["ms"] * 1e-3) for k, row in rows.items()}
+    # the multiply chains 8x longer: at R the launch, the ramp and the
+    # last wave of blocks take part of a 0.16 ms kernel; the measured rate
+    # is the larger of the two lengths' rates
+    rate_8r = {
+        k: 8 * R * n / (time_ms(lambda: ubench.chains(k, rows[k]["a"], rows[k]["b"], 8 * R)) * 1e-3)
+        for k in ("u32_mul", "i32_mul")
+    }
+    MEASURED["int32_mad_per_s"] = max(rate_of["u32_mul"], rate_of["i32_mul"], *rate_8r.values())
+    entries = {}
+    for op in ubench.OPS:
+        row = rows[op.key]
+        t_bytes = 3 * 4 * n / HBM_BYTES_PER_S * 1e3
+        t_ops = R * n * row["per_op_s"] * 1e3
+        b_ms, b_by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+        line = {"kernel": f"V ubench {op.key}", "label": op.label, "n": n, "R": R,
+                "tolerance": 0 if op.kind != "f32" else f"rtol {ubench.F32_RTOL}",
+                "max_abs_err": row["max_abs_err"], "max_rel_err": row["max_rel_err"],
+                "ms": row["ms"], "plain_ms": row["plain_ms"],
+                "g_op_per_s": rate_of[op.key] / 1e9, "share_of_published": t_ops / row["ms"],
+                "bound_ms": b_ms, "bound_by": b_by, "bound_published_ms": b_ms, "bound_published_by": b_by,
+                "sass": row["sass"]}
+        emit({"phase": "ubench", **line})
+        entries[f"ubench_{op.key}"] = {
+            "name": f"ubench_{op.key}", "route": "cuda", "source": "groth16_tpu_torch/csrc/ubench_ops.cu",
+            "replaces": "scripts/ubench_vpu.py:32", "launches": launches[op.key], "path": "ubench",
+            "launches_by_path": {"ubench": launches[op.key]}, **_kline(line),
+        }
+    emit({
+        "phase": "ubench", "int32_mad_per_s_measured": MEASURED["int32_mad_per_s"],
+        "int32_mad_per_s_published": INT32_MAD_PER_S,
+        "int32_mad_per_s_published_at_measured_clock": 132 * 64 * sm_mhz * 1e6 if sm_mhz else None,
+        "mul_per_s_at_R": {k: rate_of[k] for k in rate_8r}, "mul_per_s_at_8R": rate_8r,
+        "sm_clock_mhz_under_load": sm_mhz, "smi_samples": clocks[:20], "card": card_line(),
+    })
+    return entries
 
 
 def phase_setup():
@@ -246,11 +437,11 @@ def phase_kernels(pk, matrices, device):
     import numpy as np
     import torch
 
-    from groth16_tpu_torch.curves import codec, cuda_point
     from groth16_tpu_torch.curves.params import get_curve
     from groth16_tpu_torch.fields import cuda_fp
     from groth16_tpu_torch.fields.spec import encode, make_spec
     from groth16_tpu_torch.protocol.device_keys import upload_proving_key
+    from groth16_tpu_torch.utils.profiling import mont_mul_u32_ops
 
     c = get_curve(CURVE)
     n = N_KERNEL
@@ -280,10 +471,9 @@ def phase_kernels(pk, matrices, device):
             raise AssertionError(f"K1 {label}: kernel and plain version disagree")
         ms = time_ms(lambda: cuda_fp.mont_mul(spec, a, b))
         plain_ms = time_ms(lambda: cuda_fp.mont_mul_plain(spec, a, b))
-        b_ms, b_by = bound(3 * L * 4 * n, n * cios_mads(L))
         row = {"kernel": "K1 mont_mul", "field": label, "n": n, "tolerance": 0,
                "max_abs_err": max_abs_err([got], [want]),
-               "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by}
+               "ms": ms, "plain_ms": plain_ms, **bound(3 * L * 4 * n, n * mont_mul_u32_ops(L))}
         emit({"phase": "kernels", **row})
         if label == "bn254.Fr":
             entries["mont_mul"] = {
@@ -293,17 +483,38 @@ def phase_kernels(pk, matrices, device):
 
     # K4-K7 on bn254 G1 / G2 with the proving key's own points
     dpk = upload_proving_key(pk, matrices, device)
+    entries.update(_point_kernels(dpk, c, n, device, mixed=(False, True)))
+    entries.update(_scan_kernels(dpk, c, rng, device))
+    return entries
+
+
+POINT_KERNELS = {  # name: (tag, mixed, G2, the TPU kernel)
+    "add_g1": ("K4", False, False, "groth16_tpu/curves/pallas_point.py:155"),
+    "add_g2": ("K5", False, True, "groth16_tpu/curves/pallas_point.py:517"),
+    "add_mixed_g1": ("K6", True, False, "groth16_tpu/curves/pallas_point.py:249"),
+    "add_mixed_g2": ("K7", True, True, "groth16_tpu/curves/pallas_point.py:496"),
+}
+
+
+def _point_kernels(dpk, c, n, device, mixed):
+    """The point additions of curve c (full ones, and the mixed ones where
+    `mixed` holds True) against their plain version at N = n, on the
+    proving key's own points."""
+    import torch
+
+    from groth16_tpu_torch.curves import codec, cuda_point
+    from groth16_tpu_torch.fields.spec import make_spec
+    from groth16_tpu_torch.utils.profiling import point_add_u32_ops
+
     L = make_spec(c.p).n_limbs
-    specs = (
-        ("add_g1", "K4", False, codec.g1_ops(c), 1, 12, "groth16_tpu/curves/pallas_point.py:155"),
-        ("add_g2", "K5", False, codec.g2_ops(c), 2, 12, "groth16_tpu/curves/pallas_point.py:517"),
-        ("add_mixed_g1", "K6", True, codec.g1_ops(c), 1, 13, "groth16_tpu/curves/pallas_point.py:249"),
-        ("add_mixed_g2", "K7", True, codec.g2_ops(c), 2, 13, "groth16_tpu/curves/pallas_point.py:496"),
-    )
-    for name, tag, mixed, g, deg, muls, replaces in specs:
+    entries = {}
+    for name, (tag, is_mixed, g2, replaces) in POINT_KERNELS.items():
+        if is_mixed not in mixed:
+            continue
+        g, deg = (codec.g2_ops(c), 2) if g2 else (codec.g1_ops(c), 1)
         p1, p2, p1m, xy = _kernel_inputs(dpk, g, n, device)
         plain_ops = cuda_point._plain_ops(g.k.spec, getattr(g.k, "nr_int", None))
-        if mixed:
+        if is_mixed:
             run = lambda: g.add_affine(p1m, xy)  # noqa: E731
             run_plain = lambda: cuda_point.mixed_add_plain(plain_ops, g.b3_val, p1m, xy)  # noqa: E731
             # lanes whose affine operand is infinity pass P1 through: no work
@@ -317,36 +528,45 @@ def phase_kernels(pk, matrices, device):
         got, want = run(), run_plain()
         torch.cuda.synchronize()
         if not all(torch.equal(x, y) for x, y in zip(got, want)):
-            raise AssertionError(f"{tag} {name}: kernel and plain version disagree")
+            raise AssertionError(f"{tag} {name} on {c.name}: kernel and plain version disagree")
         _check_special_lanes(g, got)
         ms, plain_ms = time_ms(run), time_ms(run_plain)
-        b_ms, b_by = bound(nbytes, live * muls * deg * deg * cios_mads(L))
-        row = {"kernel": f"{tag} {name}", "n": n, "live": live, "tolerance": 0,
-               "max_abs_err": max_abs_err(got, want), "ms": ms,
-               "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by}
+        row = {"kernel": f"{tag} {name}", "curve": c.name, "n": n, "live": live, "tolerance": 0,
+               "max_abs_err": max_abs_err(got, want), "ms": ms, "plain_ms": plain_ms,
+               **bound(nbytes, live * point_add_u32_ops(L, g2, mixed=is_mixed))}
         emit({"phase": "kernels", **row})
         entries[name] = {
             "name": name, "route": "cuda", "source": "groth16_tpu_torch/csrc/point_add.cu",
             "replaces": replaces, **_kline(row),
         }
-    entries.update(_scan_kernels(dpk, rng, device))
     return entries
 
 
 def _scan_rows(g, pts, R, npad, rng, device):
-    """[R, npad, 2*ce] affine rows as the fused MSM path gathers them: row
-    r a random permutation of lane r % lanes of `pts` (infinity and the
-    padding as (0, 0)), Fq2 coordinates tower-major, a random sign bit in
-    bit 31 of each row's first word."""
+    """[R, npad, 2*ce] affine rows laid out as the fused MSM path gathers
+    them: row r a random permutation of lane r % lanes of `pts`, Fq2
+    coordinates tower-major, a random sign bit in bit 31 of each row's
+    first word.  Every slot holds one of its lane's finite points (cycled
+    through) but one in 16, which holds the infinity (0, 0), as does the
+    padding: the DummyCircuit's a, b and B queries are nearly all infinity
+    (15 finite points in the 9 rows of the 2^20 G1 scan, 4 in the G2 one),
+    which would leave the scan's arithmetic all but unexercised."""
     import numpy as np
     import torch
 
     from groth16_tpu_torch.msm.cuda_scan import SIGN_BIT
 
     lanes, n = g.batch_shape(pts)
-    inf = g.is_infinity(pts)
+    finite = ~g.is_infinity(pts)
+    slots = torch.arange(n, device=device)
+    src = torch.stack([
+        f[slots % f.numel()] if f.numel() else slots
+        for f in (torch.nonzero(finite[lane]).reshape(-1) for lane in range(lanes))
+    ])
+    inf = ~finite.any(dim=-1, keepdim=True) | (slots % 16 == 15)
 
     def rows_of(coord):  # [*cs, lanes, n] -> [lanes, n, ce]
+        coord = torch.gather(coord, -1, src.expand(coord.shape))
         coord = torch.where(inf, torch.zeros_like(coord), coord)
         if g.k.tower_deg > 1:
             coord = coord.movedim(1, 0)
@@ -361,17 +581,31 @@ def _scan_rows(g, pts, R, npad, rng, device):
     return rows.contiguous()
 
 
-def _scan_kernels(dpk, rng, device):
+def timed_once(fn):
+    """(fn(), its CUDA-event time in ms) of one call, no warm-up: for the
+    plain scans, whose one run at the prove's depth takes seconds."""
+    import torch
+
+    t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0.record()
+    out = fn()
+    t1.record()
+    t1.synchronize()
+    return out, t0.elapsed_time(t1)
+
+
+def _scan_kernels(dpk, c, rng, device):
     """K2/K3 against their plain version at the shapes the prove gives
-    them: the G1 window group with the most points, and the G2 MSM."""
+    them, all K steps of each column: the G1 window group with the most
+    points, and the G2 MSM.  The plain version (one step at a time) is
+    timed from the one run that is checked."""
     import torch
 
     from groth16_tpu_torch.curves import codec, cuda_point
-    from groth16_tpu_torch.curves.params import get_curve
     from groth16_tpu_torch.msm import cuda_scan
     from groth16_tpu_torch.msm.pippenger import msm_plan
+    from groth16_tpu_torch.utils.profiling import point_add_u32_ops
 
-    c = get_curve(CURVE)
     sbits = c.r.bit_length()
     big = max(range(len(dpk.g1_groups)), key=lambda i: dpk.g1_groups[i][2].numel())
     specs = (
@@ -388,26 +622,27 @@ def _scan_kernels(dpk, rng, device):
         lanes, n = g.batch_shape(pts)
         plan = msm_plan(n, lanes, sbits, ce)
         R, K, C = lanes * plan.wg, plan.K, plan.C
-        rows = _scan_rows(g, pts, R, plan.npad, rng, device)
+        npad = K * C
+        rows = _scan_rows(g, tuple(x[..., :npad] for x in pts), R, npad, rng, device)
         if D == 1:
             run = lambda: cuda_scan.suffix_scan_g1_rows(k.spec, g.b3_val, rows, K, C)  # noqa: E731
         else:
             run = lambda: cuda_scan.suffix_scan_g2_rows(k.spec, k.nr_int, g.b3_val, rows, K, C)  # noqa: E731
         plain_ops = cuda_point._plain_ops(k.spec, getattr(k, "nr_int", None))
         run_plain = lambda: cuda_scan.suffix_scan_plain(plain_ops, g.b3_val, rows, K, C)  # noqa: E731
-        got, want = run(), run_plain()
-        torch.cuda.synchronize()
+        got = run()
+        want, plain_ms = timed_once(run_plain)
         got, want = [got[0], *got[1]], [want[0], *want[1]]
         if not all(torch.equal(x, y) for x, y in zip(got, want)):
-            raise AssertionError(f"{tag} {name}: kernel and plain version disagree")
-        ms, plain_ms = time_ms(run), time_ms(run_plain, reps=3)
+            raise AssertionError(f"{tag} {name} on {c.name}: kernel and plain version disagree")
+        ms = time_ms(run)
         # a step whose affine operand is infinity passes the accumulator on
         live = int((rows[..., ce:] != 0).any(dim=-1).sum())
-        nbytes = (R * plan.npad * (2 + 3) * ce + 3 * ce * R * C) * 4
-        b_ms, b_by = bound(nbytes, live * 13 * D * D * cios_mads(L))
-        row = {"kernel": f"{tag} {name}", "rows_steps_chunks": [R, K, C], "live": live, "tolerance": 0,
+        nbytes = (R * npad * (2 + 3) * ce + 3 * ce * R * C) * 4
+        row = {"kernel": f"{tag} {name}", "curve": c.name, "rows_steps_chunks": [R, K, C],
+               "live": live, "tolerance": 0,
                "max_abs_err": max_abs_err(got, want), "ms": ms, "plain_ms": plain_ms,
-               "bound_ms": b_ms, "bound_by": b_by}
+               **bound(nbytes, live * point_add_u32_ops(L, D == 2))}
         emit({"phase": "kernels", **row})
         entries[name] = {
             "name": name, "route": "cuda", "source": "groth16_tpu_torch/csrc/suffix_scan.cu",
@@ -446,7 +681,8 @@ def profile_prove(prove) -> dict:
 
 
 def _kline(row):
-    return {k: row[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")} | {"library_ms": None}
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "bound_published_ms", "bound_published_by")
+    return {k: row[k] for k in keys} | {"library_ms": None}
 
 
 def _check_special_lanes(g, out):
@@ -484,8 +720,9 @@ def _counters():
     from groth16_tpu_torch.curves import cuda_point
     from groth16_tpu_torch.fields import cuda_fp
     from groth16_tpu_torch.msm import cuda_scan
+    from groth16_tpu_torch.utils import ubench
 
-    return (cuda_fp, cuda_point, cuda_scan)
+    return (cuda_fp, cuda_point, cuda_scan, ubench)
 
 
 def zero_counts():
@@ -511,6 +748,7 @@ def read_counts(kernels) -> dict:
 
 MAIN_KERNELS = ("mont_mul", "add_g1", "add_g2", "suffix_scan_g1", "suffix_scan_g2")
 CAPTURE_KERNELS = ("mont_mul", "add_g1", "add_g2", "add_mixed_g1", "add_mixed_g2")
+SETUP_KERNELS = ("mont_mul", "add_g1", "add_g2")
 
 
 def phase_main_path(pk, vk, cs, rng, device):
@@ -601,6 +839,173 @@ def phase_capture_path(prover, cs, first):
     return launches
 
 
+def phase_device_setup(pk_exact):
+    """setup_device of the 2^16 bn254 circuit with the exact setup's seed:
+    the same key, through K1, K4 and K5."""
+    import torch
+
+    from groth16_tpu_torch.protocol.generator_torch import setup_device
+    from groth16_tpu_torch.r1cs.circuits import DummyCircuit
+    from groth16_tpu_torch.utils.profiling import PhaseTimer
+    from groth16_tpu_torch.utils.rng import Rng
+
+    n_constraints, n_vars = (1 << LOG_N) - 2, 1 << (LOG_N - 1)
+    timer = PhaseTimer(verbose=False, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.time()
+    pk, _ = setup_device(DummyCircuit(n_vars, n_constraints), CURVE, Rng(0xBE7C), timer=timer)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = read_counts(SETUP_KERNELS)
+    if pk != pk_exact:
+        raise AssertionError("the device setup's key differs from the exact setup's")
+    emit({
+        "phase": "device_setup", "curve": CURVE, "log_n": LOG_N, "setup_s": wall,
+        "phases_s": timer.as_dict(), "launches": launches, "equal_to_exact_setup": True,
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+    })
+    return launches
+
+
+def _check_sampled(curve, pk, record, k=64, seed=0x5A):
+    """k points of each query (half of them, where there are that many,
+    from nonzero scalars) recomputed on the host as scalar x generator
+    with the exact engine, from the scalars the device built."""
+    import numpy as np
+    import torch
+
+    from groth16_tpu_torch.curves.params import get_curve
+    from groth16_tpu_torch.fields.spec import decode, make_spec
+    from groth16_tpu_torch.ref.curve import RefGroups
+
+    groups = RefGroups(curve)
+    spec = make_spec(get_curve(curve).r)
+    rng = np.random.default_rng(seed)
+    na, nb, nh, nl, ni = record["counts"]
+    queries = (
+        ("a_query", record["g1"], 0, na, pk.a_query, groups.g1_mul, record["g1_generator"]),
+        ("b_g1_query", record["g1"], na, nb, pk.b_g1_query, groups.g1_mul, record["g1_generator"]),
+        ("h_query", record["g1"], na + nb, nh, pk.h_query, groups.g1_mul, record["g1_generator"]),
+        ("l_query", record["g1"], na + nb + nh, nl, pk.l_query, groups.g1_mul, record["g1_generator"]),
+        ("gamma_abc_g1", record["g1"], na + nb + nh + nl, ni, pk.vk.gamma_abc_g1, groups.g1_mul,
+         record["g1_generator"]),
+        ("b_g2_query", record["g2"], 0, nb, pk.b_g2_query, groups.g2_mul, record["g2_generator"]),
+    )
+    checked = {}
+    for name, scal, off, n, pts, mul, gen in queries:
+        nonzero = torch.nonzero((scal[:, off : off + n] != 0).any(dim=0)).reshape(-1).cpu().numpy()
+        pick = set(rng.choice(nonzero, size=min(k // 2, len(nonzero)), replace=False).tolist())
+        rest = rng.permutation(n)
+        pick |= set(rest[: max(0, min(k, n) - len(pick))].tolist())
+        idx = sorted(pick)
+        vals = decode(scal[:, [off + i for i in idx]].cpu().numpy(), spec, mont=False)
+        for i, s in zip(idx, vals):
+            if mul(gen, s) != pts[i]:
+                raise AssertionError(f"{name}[{i}] is not its scalar times the generator")
+        checked[name] = len(idx)
+    return checked
+
+
+def _step(out: dict, name: str):
+    """Emit the fields `out` gained since the last step of its phase."""
+    seen = out.setdefault("_seen", set())
+    new = {k: v for k, v in out.items() if k not in seen and k != "_seen"}
+    seen.update(new)
+    emit({"phase": out["phase"], "step": name, **new})
+
+
+def phase_bls(device):
+    """The 2^20 bls12_381 DummyCircuit: device setup, sampled key check,
+    TorchProver on cuda (one counted prove, 2 steady ones), verify.
+    Returns the prove's launches and the L = 26 kernel checks."""
+    import numpy as np
+    import torch
+
+    from groth16_tpu_torch.curves.params import get_curve
+    from groth16_tpu_torch.protocol.generator_torch import setup_device
+    from groth16_tpu_torch.protocol.prover_torch import TorchProver
+    from groth16_tpu_torch.protocol.verifier import prepare_verifying_key, verify_proof
+    from groth16_tpu_torch.r1cs.circuits import DummyCircuit
+    from groth16_tpu_torch.r1cs.system import ConstraintSystem, SynthesisMode
+    from groth16_tpu_torch.utils.profiling import PhaseTimer
+    from groth16_tpu_torch.utils.rng import Rng
+
+    c = get_curve(BLS_CURVE)
+    n_constraints, n_vars = (1 << BLS_LOG_N) - 2, 1 << (BLS_LOG_N - 1)
+    out = {"phase": "bls12_381_2p20", "curve": BLS_CURVE, "log_n": BLS_LOG_N,
+           "constraints": n_constraints, "variables": n_vars}
+    timer = PhaseTimer(verbose=False, device="cuda")
+    record = {}
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.time()
+    pk, vk = setup_device(DummyCircuit(n_vars, n_constraints), BLS_CURVE, Rng(0xB15), timer=timer, record=record)
+    torch.cuda.synchronize()
+    out["setup_s"] = time.time() - t0
+    out["setup_phases_s"] = timer.as_dict()
+    out["setup_launches"] = read_counts(SETUP_KERNELS)
+    out["setup_peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out["key_points"] = {"g1": sum(record["counts"]) + 3, "g2": record["counts"][1] + 3}
+    _step(out, "setup")
+    t0 = time.time()
+    out["sampled_points_checked"] = _check_sampled(BLS_CURVE, pk, record)
+    out["sampled_check_s"] = time.time() - t0
+    del record
+
+    t0 = time.time()
+    cs = ConstraintSystem(c.r, mode=SynthesisMode.PROVE)
+    DummyCircuit(n_vars, n_constraints, a=3, b=5)(cs)
+    matrices, z = cs.to_matrices(), cs.full_assignment()
+    out["prove_synthesis_s"] = time.time() - t0
+    t0 = time.time()
+    prover = TorchProver(pk, matrices)
+    out["pk_upload_s"] = time.time() - t0
+    _step(out, "upload")
+    # the L = 26 builds of K4/K5 at N = 2^16 and of K2/K3 at this prove's
+    # rows, steps and chunks, against their plain version
+    krng = np.random.default_rng(0xB17)
+    rows = {**_point_kernels(prover.dpk, c, N_KERNEL, device, mixed=(False,)),
+            **_scan_kernels(prover.dpk, c, krng, device)}
+    rng = Rng(0xB16)
+    r, s = rng.field_element(c.r), rng.field_element(c.r)
+    # the proves' peak (the key stays resident), not the kernel checks'
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.time()
+    proofs = [prover.prove(z, r, s)]
+    torch.cuda.synchronize()
+    out["first_prove_s"] = time.time() - t0
+    launches = read_counts(MAIN_KERNELS)
+    out["launches_per_prove"] = launches
+    z_enc = prover.encode_assignment(z)
+    ptimer = PhaseTimer(verbose=False, device="cuda")
+    walls = []
+    for i in range(2):
+        r, s = rng.field_element(c.r), rng.field_element(c.r)
+        t0 = time.time()
+        proofs.append(prover.prove_encoded_host(z_enc, r, s, timer=ptimer if i == 1 else None))
+        walls.append(time.time() - t0)
+    out["steady_prove_s"] = walls
+    out["phases_s"] = ptimer.as_dict()
+    out["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    _step(out, "prove")
+    t0 = time.time()
+    pvk = prepare_verifying_key(vk)
+    out["prepare_vk_s"] = time.time() - t0
+    t0 = time.time()
+    for i, proof in enumerate(proofs):
+        if not verify_proof(pvk, proof, [15]):
+            raise AssertionError(f"bls12_381 proof {i} does not verify")
+        if verify_proof(pvk, proof, [16]):
+            raise AssertionError(f"bls12_381 proof {i} verifies with a wrong public input")
+    out["verify_s_per_check"] = (time.time() - t0) / (2 * len(proofs))
+    out.update(proofs_verified=len(proofs), wrong_input_rejected=True)
+    out.pop("_seen")
+    emit(out)
+    return launches, rows
+
+
 def main() -> int:
     import torch
 
@@ -612,17 +1017,27 @@ def main() -> int:
 
     device = torch.device("cuda")
     phase_card()
+    ubench_entries = phase_ubench(device)
     pk, vk, cs, rng = phase_setup()
     entries = phase_kernels(pk, cs.to_matrices(), device)
     phase_reference(device)
     prover, launches, first = phase_main_path(pk, vk, cs, rng, device)
     capture = phase_capture_path(prover, cs, first)
+    del prover
+    setup = phase_device_setup(pk)
+    del pk, vk, cs
+    bls, bls_rows = phase_bls(device)
     kernels = []
     for name, e in entries.items():
+        by_path = {"main": launches.get(name, 0), "capture": capture.get(name, 0),
+                   "setup": setup.get(name, 0), "bls12_381_2p20": bls.get(name, 0)}
+        if name in bls_rows:
+            e = dict(e, bls12_381={k: v for k, v in bls_rows[name].items() if k not in e or e[k] != v})
         if name in MAIN_KERNELS:
-            kernels.append(dict(e, launches=launches[name], path="main"))
+            kernels.append(dict(e, launches=launches[name], path="main", launches_by_path=by_path))
         else:  # K6/K7 run on the capture-scan path only
-            kernels.append(dict(e, launches=capture[name], path="capture"))
+            kernels.append(dict(e, launches=capture[name], path="capture", launches_by_path=by_path))
+    kernels += list(ubench_entries.values())
     emit({"kernels": kernels})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

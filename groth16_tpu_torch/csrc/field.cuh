@@ -65,12 +65,24 @@ __device__ __forceinline__ uint32_t rex(uint32_t (&x)[L]) {
   return c & MASK;
 }
 
+// G16_OUTLINE_MUL (utils/cuda_build.py sets it for the L = 26 point-add and
+// scan libraries): mont_mul is compiled once and called, instead of being
+// inlined into each of the 12-52 products of a point addition.  Inlined at
+// L = 26, one such kernel took ptxas 12-15 minutes (spilling up to 27 KB a
+// thread over Fq2); a call passes its operands through the stack, a few
+// dozen words against the ~4,000 instructions of the product.
+#ifdef G16_OUTLINE_MUL
+#define G16_MUL_ATTR __noinline__
+#else
+#define G16_MUL_ATTR __forceinline__
+#endif
+
 // fp.mont_mul / pallas_fp.cios: inputs any digit class with value < 8p,
 // output exact digits < 2p.  The columns of acc stay < 2^23 (fp.py ledger).
 // Both loops are unrolled, so every register index is static.
 template <int L>
-__device__ __forceinline__ void mont_mul(const uint32_t (&a_in)[L], const uint32_t (&b_in)[L],
-                                         uint32_t (&out)[L], const Consts<L>& k) {
+__device__ G16_MUL_ATTR void mont_mul(const uint32_t (&a_in)[L], const uint32_t (&b_in)[L],
+                                      uint32_t (&out)[L], const Consts<L>& k) {
   uint32_t a[L], b[L], acc[L + 1];
 #pragma unroll
   for (int j = 0; j < L; j++) {

@@ -2,10 +2,10 @@
 
 Port of `groth16_tpu/curves/codec.py`: bridges the exact engine's
 representation (ints / (c0, c1) tuples, None for infinity) and the
-device structure-of-arrays limb tensors.  Each function takes the
-device explicitly.  Decoding converts projective points to affine on
-the host with the exact engine's field inverse (the device batch
-inversion waits for a later slice).
+device structure-of-arrays limb tensors.  Each encoder takes the device
+explicitly; decoders convert to affine where the points lie (on the card:
+`CurveDevice.to_affine`, one batched inverse through K1) and bring back
+standard-form digits.
 """
 
 from __future__ import annotations
@@ -17,6 +17,7 @@ import torch
 
 from groth16_tpu_torch.curves.params import CurveParams
 from groth16_tpu_torch.curves.point import CurveDevice, Point
+from groth16_tpu_torch.fields import fp
 from groth16_tpu_torch.fields.ops import Fp2Ops, FpOps
 from groth16_tpu_torch.fields.spec import FpSpec, decode, encode, make_spec
 
@@ -84,42 +85,42 @@ def g2_to_device(c: CurveParams, pts, device="cuda") -> Point:
     return (_t(encd(xs), device), _t(encd(ys), device), _t(z, device))
 
 
-def _field_ctx(c: CurveParams, g2: bool):
-    from groth16_tpu_torch.ref.group import FpCtx, g2_field_ctx
-
-    return g2_field_ctx(c) if g2 else FpCtx(c.p)
-
-
-def _to_affine_host(ctx, X, Y, Z):
-    if ctx.is_zero(Z):
-        return None
-    zi = ctx.inv(Z)
-    return (ctx.mul(X, zi), ctx.mul(Y, zi))
+def _affine_std(g: CurveDevice, pt: Point):
+    """Device projective batch -> (x, y) in standard form on the host
+    (numpy digits) and the infinity mask: the affine conversion and the
+    Montgomery -> standard conversion run on the device (K1 products), so
+    the host only unpacks digits."""
+    x, y, inf = g.to_affine(pt)
+    spec = g.k.spec
+    xy = fp.from_mont(spec, torch.stack([x, y], dim=1)).cpu().numpy()
+    return xy[:, 0], xy[:, 1], inf.cpu().numpy()
 
 
 def g1_from_device(c: CurveParams, g: CurveDevice, pt: Point):
     """Device projective batch (or single point) -> list of exact affine
     points (None for infinity)."""
-    spec = g.k.spec
     single = pt[2].dim() == g.k.coord_ndim
-    X, Y, Z = (decode(x.cpu().numpy().reshape(x.shape[0], -1), spec) for x in pt)
-    ctx = _field_ctx(c, False)
-    out = [_to_affine_host(ctx, x, y, z) for x, y, z in zip(X, Y, Z)]
+    if single:
+        pt = tuple(a[..., None] for a in pt)
+    x, y, inf = _affine_std(g, pt)
+    xs = decode(x.reshape(x.shape[0], -1), g.k.spec, mont=False)
+    ys = decode(y.reshape(y.shape[0], -1), g.k.spec, mont=False)
+    out = [None if i else (xv, yv) for xv, yv, i in zip(xs, ys, inf.reshape(-1))]
     return out[0] if single else out
 
 
 def g2_from_device(c: CurveParams, g: CurveDevice, pt: Point):
     if c.g2_over_base:
         return g1_from_device(c, g, pt)
-    spec = g.k.spec
     single = pt[2].dim() == g.k.coord_ndim
+    if single:
+        pt = tuple(a[..., None] for a in pt)
+    x, y, inf = _affine_std(g, pt)  # [L, 2, *batch]
 
-    def dec(x):  # [L, 2, *batch] -> per-point (c0, c1) tuples
-        arr = x.cpu().numpy().reshape(x.shape[0], 2, -1)
-        v = decode(np.moveaxis(arr, 1, 2), spec)
-        return [tuple(v[2 * i : 2 * i + 2]) for i in range(arr.shape[-1])]
+    def dec(a):  # -> per-point (c0, c1) tuples
+        a = a.reshape(a.shape[0], 2, -1)
+        v = decode(np.moveaxis(a, 1, 2), g.k.spec, mont=False)
+        return list(zip(v[0::2], v[1::2]))
 
-    X, Y, Z = (dec(x) for x in pt)
-    ctx = _field_ctx(c, True)
-    out = [_to_affine_host(ctx, x, y, z) for x, y, z in zip(X, Y, Z)]
+    out = [None if i else (xv, yv) for xv, yv, i in zip(dec(x), dec(y), inf.reshape(-1))]
     return out[0] if single else out

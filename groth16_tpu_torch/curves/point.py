@@ -15,8 +15,9 @@ coordinates hold values in [0, 2p) with exact digits.
 wrappers of curves/cuda_point.py, which dispatch by device: the CUDA
 kernels K4/K5 and K6/K7 on the card, their plain versions on the CPU.
 The TPU size gates of the JAX package have no counterpart here: the
-kernels mask their own ragged edge.  The generic-a formula, scalar_mul_bits
-and to_affine wait for later slices.
+kernels mask their own ragged edge.  `to_affine` inverts every Z of a
+batch with one Fermat inverse (fields/fp.py batch_inv, K1 products).
+The generic-a formula and scalar_mul_bits wait for later slices.
 """
 
 from __future__ import annotations
@@ -133,6 +134,24 @@ class CurveDevice:
                 k.spec, k.nr_int, self.b3_val, flat[:3], flat[3:]
             )
         return self._unflat(out, shape)
+
+    # -- conversions -------------------------------------------------------------
+
+    def to_affine(self, pt: Point):
+        """Batch projective -> affine: (x, y, inf_mask), x and y < 2p in
+        Montgomery form, (0, 0) at infinity.  One batched Fermat inverse
+        of the Z's (the analog of arkworks' `into_affine` batch
+        normalization, prover.rs:127-130)."""
+        k = self.k
+        X, Y, Z = pt
+        shape = self.batch_shape(pt)
+        dev = Z.device
+        inf = self.is_infinity(pt)
+        zsafe = k.select(inf, k.one(shape, device=dev), Z)
+        zinv = k.batch_inv(zsafe) if shape else k.inv(zsafe)
+        x, y = k.mul_many([(X, zinv), (Y, zinv)])
+        zero = k.zero(shape, device=dev)
+        return k.select(inf, zero, x), k.select(inf, zero, y), inf
 
     # -- reductions ------------------------------------------------------------
 

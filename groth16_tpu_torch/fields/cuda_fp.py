@@ -124,15 +124,16 @@ def mont_mul_plain(spec: FpSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tens
     n = max(a.shape[-1], b.shape[-1])
     a = fold(a).to(torch.int64).expand(L, n)
     b = fold(b).to(torch.int64).expand(L, n)
-    p_vec = torch.tensor(spec.p_limbs, dtype=torch.int64, device=a.device)[:, None]
+    p_vec = torch.tensor(spec.p_limbs, dtype=torch.int64, device=a.device)[:, None].expand(L, n)
     n0 = int(spec.n0inv)
     # acc[i : i + L + 1] is the (L+1)-column accumulator of step i: the
     # shift by one column at the end of each step is a moving window
     acc = torch.zeros((2 * L + 1, n), dtype=torch.int64, device=a.device)
     for i in range(L):
-        acc[i : i + L] += a[i] * b  # semi*semi < 2^31
-        m = ((acc[i] & M) * n0) & M
-        acc[i : i + L] += m * p_vec
+        cols = acc[i : i + L]
+        cols.addcmul_(b, a[i : i + 1])  # semi*semi < 2^31
+        m = (acc[i] * n0) & M  # the low 15 bits decide; acc[i] * n0 < 2^53
+        cols.addcmul_(p_vec, m[None])
         acc[i + 1] += acc[i] >> LIMB_BITS  # acc[i] = 0 mod 2^15 now
     # value < 2p < R: the top column is zero; one fold brings the columns
     # below 2^30, then resolve to exact digits

@@ -183,6 +183,11 @@ def add_strict(spec: FpSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return cond_sub(spec, add(spec, a, b), spec.two_p_limbs)
 
 
+def sub_strict(spec: FpSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """[0,2p) x [0,2p) -> a - b in [0,2p), exact digits."""
+    return cond_sub(spec, sub(spec, a, b, k=2), spec.two_p_limbs)
+
+
 # -- Montgomery multiplication ------------------------------------------------
 
 
@@ -208,6 +213,11 @@ def mont_mul(spec: FpSpec, a: torch.Tensor, b: torch.Tensor, plain: bool = False
     if out.shape[1] != n:
         out = out.expand(L, n)
     return out.reshape((L,) + tuple(batch))
+
+
+def mul_const(spec: FpSpec, a: torch.Tensor, value: int) -> torch.Tensor:
+    """Multiply by a host constant (encoded in Montgomery form)."""
+    return mont_mul(spec, a, const(spec, value, (), device=a.device))
 
 
 # -- normalization / comparisons ----------------------------------------------
@@ -241,3 +251,97 @@ def from_mont(spec: FpSpec, a: torch.Tensor) -> torch.Tensor:
     one = torch.zeros_like(a)
     one[0] = 1
     return normalize(spec, mont_mul(spec, a, one), bound_k=2)
+
+
+# -- exponentiation and inversion -----------------------------------------------
+
+# Sequential steps of the within-chunk pass of `_chunked_scan_mul`.  The JAX
+# package caps the chunk count at 1024 (its scan body is one program either
+# way); here every step is a K1 launch, so the chunk count grows with N and
+# the step count stays fixed: at N = 2^22, 64 steps of 65,536-wide products
+# and a 16-step cross pass.
+SCAN_STEPS = 64
+
+
+def pow_const(spec: FpSpec, a: torch.Tensor, e: int) -> torch.Tensor:
+    """a^e for a host-int exponent, square-and-multiply over the bits of e
+    from the lowest: one K1 launch per square and one per set bit (the JAX
+    package's scan selects the same products, so the digits are the same).
+    Input value < 8p; output exact digits < 2p."""
+    res = const(spec, 1, a.shape[1:], device=a.device)
+    if e == 0:
+        return res.contiguous()
+    base = a
+    for i in range(e.bit_length()):
+        if (e >> i) & 1:
+            res = mont_mul(spec, res, base)
+        if i + 1 < e.bit_length():
+            base = mont_mul(spec, base, base)
+    return res
+
+
+def inv(spec: FpSpec, a: torch.Tensor) -> torch.Tensor:
+    """Fermat inverse (0 maps to 0).  Input value < 8p."""
+    return pow_const(spec, fold(a), spec.modulus - 2)
+
+
+def batch_inv(spec: FpSpec, a: torch.Tensor) -> torch.Tensor:
+    """Montgomery batch inversion over all batch axes: one Fermat inverse
+    and O(N) products from a prefix and a suffix product scan.  Zero
+    entries map to zero.  a: [L, *batch], values < 8p; output < 2p."""
+    L = spec.n_limbs
+    shape = tuple(a.shape[1:])
+    a = a.reshape(L, -1)
+    n = a.shape[1]
+    if n == 1:
+        return inv(spec, a).reshape((L,) + shape)
+    one = const(spec, 1, (n,), device=a.device)
+    zmask = is_zero(spec, a)
+    safe = select(zmask, one, a)
+    prefix = _chunked_scan_mul(spec, safe, reverse=False)
+    total_inv = inv(spec, prefix[:, -1:])
+    suffix = _chunked_scan_mul(spec, safe, reverse=True)
+    one_col = one[:, :1]
+    suffix = torch.cat([suffix[:, 1:], one_col], dim=1)
+    prefix_excl = torch.cat([one_col, prefix[:, :-1]], dim=1)
+    out = mont_mul(spec, mont_mul(spec, prefix_excl, suffix), total_inv)
+    return select(zmask, zeros(spec, (n,), device=a.device), out).reshape((L,) + shape)
+
+
+def _chunked_scan_mul(spec: FpSpec, x: torch.Tensor, reverse: bool) -> torch.Tensor:
+    """Inclusive product scan over the element axis of x: [L, N].
+
+    The JAX package's two-level decomposition: element j = c*K + k sits at
+    [c, k] of a [C, K] view; K sequential C-wide products scan within the
+    chunks, a Hillis-Steele pass over the C chunk totals gives each chunk
+    the product of the chunks before it (after it, if reverse), and one
+    N-wide product joins the two.  N is padded to C*K with ones, which
+    leave every prefix and suffix product unchanged."""
+    L, N = x.shape
+    C = -(-N // SCAN_STEPS)
+    K = -(-N // C)
+    one = const(spec, 1, (1,), device=x.device)
+    if C * K != N:
+        x = torch.cat([x, one.expand(L, C * K - N)], dim=1)
+    rows = x.reshape(L, C, K).permute(2, 0, 1).contiguous()  # [K, L, C]
+    within = torch.empty_like(rows)
+    acc = one.expand(L, C)
+    for k in (reversed(range(K)) if reverse else range(K)):
+        acc = mont_mul(spec, acc, rows[k])
+        within[k] = acc
+    pos = torch.arange(C, device=x.device)
+    cross = acc  # chunk totals, then their inclusive scan
+    s = 1
+    while s < C:
+        if reverse:
+            shifted = select(pos + s < C, torch.roll(cross, -s, dims=1), one)
+        else:
+            shifted = select(pos >= s, torch.roll(cross, s, dims=1), one)
+        cross = mont_mul(spec, cross, shifted)
+        s <<= 1
+    if reverse:
+        cross_excl = select(pos < C - 1, torch.roll(cross, -1, dims=1), one)
+    else:
+        cross_excl = select(pos >= 1, torch.roll(cross, 1, dims=1), one)
+    out = mont_mul(spec, within.permute(1, 2, 0), cross_excl[:, :, None])  # [L, C, K]
+    return out.reshape(L, C * K)[:, :N]

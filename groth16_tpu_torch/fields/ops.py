@@ -113,6 +113,12 @@ class FpOps:
         """mask ? a : b with mask of batch shape (trailing broadcast)."""
         return torch.where(mask, a, b)
 
+    def inv(self, a):
+        return fp.inv(self.spec, a)
+
+    def batch_inv(self, a):
+        return fp.batch_inv(self.spec, a)
+
 
 class Fp2Ops:
     """Device ops for Fq2 = Fq[u]/(u^2 - nonresidue) (G2 coordinates).
@@ -225,6 +231,39 @@ class Fp2Ops:
 
     def select(self, mask, a, b):
         return torch.where(mask, a, b)
+
+    def _norm(self, a):
+        """a0^2 - nr*a1^2 (value < 8p, exact digits), the Fq norm that
+        inversion divides by."""
+        s = self.spec
+        a0, a1 = a[:, 0], a[:, 1]
+        v0, v1 = _stack_run(lambda x, y: fp.mont_mul(s, x, y, plain=self.plain), [(a0, a0), (a1, a1)], 1)
+        nr = self.nr_int
+        if abs(nr) <= 16:
+            t = _fp_mul_small_lazy(v1, abs(nr))  # < 2|nr| p
+            if nr < 0:
+                out = v0 + t  # norm = a0^2 + |nr| a1^2, lazy
+            else:
+                out = fp.sub(s, v0, t, k=2 * nr)
+            return fp.reduce_to_2p(s, out, bound_k=2 + 2 * abs(nr))
+        w = fp.mont_mul(s, v1, fp._col(self._nr_limbs, v1.device, v1.dim()), plain=self.plain)
+        # norm = v0 - nr*v1 with a general (positive-residue) nr constant
+        return fp.sub(s, v0, w, k=2)
+
+    def _conj_times(self, a, ninv):
+        """(a0, -a1) * ninv: the inverse once ninv = 1 / norm(a)."""
+        s = self.spec
+        c0, c1m = _stack_run(
+            lambda x, y: fp.mont_mul(s, x, y, plain=self.plain),
+            [(a[:, 0], ninv), (a[:, 1], ninv)], 1,
+        )
+        return self._pack(c0, fp.neg(s, c1m, k=2))
+
+    def inv(self, a):
+        return self._conj_times(a, fp.inv(self.spec, self._norm(a)))
+
+    def batch_inv(self, a):
+        return self._conj_times(a, fp.batch_inv(self.spec, self._norm(a)))
 
 
 def _fp_mul_small_lazy(a, n: int):

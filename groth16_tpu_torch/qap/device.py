@@ -1,8 +1,10 @@
-"""Device QAP witness map: sparse matvec + the 7-NTT pipeline (PyTorch).
+"""Device QAP: the prover's witness map (sparse matvec + the 7-NTT
+pipeline) and the setup's instance map (PyTorch).
 
-Port of `groth16_tpu/qap/device.py:29-151`: the realization of
-`LibsnarkReduction::witness_map_from_matrices` (r1cs_to_qap.rs:172-235),
-output equal mod p to the exact engine in qap/reduction.py.
+Port of `groth16_tpu/qap/device.py`: the realizations of
+`LibsnarkReduction::witness_map_from_matrices` (r1cs_to_qap.rs:172-235)
+and `instance_map_with_evaluation` (r1cs_to_qap.rs:128-170), outputs
+equal mod p to the exact engine in qap/reduction.py.
 
 Sparse matvec: matrices are COO triples sorted by row.  Per-row sums
 come from a segmented inclusive Hillis-Steele scan of `add_strict` over
@@ -137,3 +139,72 @@ def witness_map_device(
     zg_inv = pow(zg, p - 2, p)
     ab = fp.mont_mul(spec, fp.sub(spec, ab, c), fp.const(spec, zg_inv, (1,), device=dev))
     return domain.coset_ifft(ab)
+
+
+# -- device QAP instance map (setup side) ---------------------------------------
+
+
+def encode_matrix_transposed(m: FlatMatrix, fr: FpSpec, num_vars: int, device="cuda") -> DeviceMatrix:
+    """COLUMN-sorted encoding of a constraint matrix: segments per
+    VARIABLE, entries gathering by constraint ROW.  sparse_matvec of it
+    with z = the Lagrange-coefficient vector u computes the setup's
+    per-variable accumulation a[var] = sum_i u_i(t) * coeff_{i,var}
+    (r1cs_to_qap.rs:157-167) with the prover's segmented scan."""
+    if m.nnz == 0:
+        return device_matrix_from_numpy(
+            encode([0], fr), np.zeros(1), np.ones(1, bool),
+            np.zeros(num_vars), np.zeros(num_vars, bool), num_vars, device,
+        )
+    order = np.argsort(m.cols, kind="stable")
+    cols_sorted = m.cols[order]
+    col_ptr = np.searchsorted(cols_sorted, np.arange(num_vars + 1))
+    nonempty = col_ptr[1:] > col_ptr[:-1]
+    end_idx = np.where(nonempty, col_ptr[1:] - 1, 0)
+    seg_start = np.zeros(m.nnz, dtype=bool)
+    seg_start[col_ptr[:-1][nonempty]] = True
+    coeffs = encode([m.coeffs[i] for i in order.tolist()], fr)
+    return device_matrix_from_numpy(
+        coeffs, m.rows[order], seg_start, end_idx, nonempty, num_vars, device
+    )
+
+
+def lagrange_coeffs_device(spec: FpSpec, domain: NttDomain, t: int, xs: torch.Tensor) -> torch.Tensor:
+    """All n Lagrange coefficients L_i(t) on the device, Montgomery form.
+
+    The exact engine's O(n) identity (ref/domain.py
+    evaluate_all_lagrange_coefficients): on the radix-2 domain H = <w>,
+    L_i(t) = (Z(t)/n) * x_i / (t - x_i) with Z(t) = t^n - 1; the
+    denominators invert in one batch (fp.batch_inv).  t must lie OUTSIDE
+    the domain (generator.rs:90 samples it so).  xs: the domain-element
+    table [L, n] (Montgomery), e.g. ntt.powers(spec, domain.group_gen, n)."""
+    n = domain.size
+    p = spec.modulus
+    zt = (pow(t, n, p) - 1) % p
+    if zt == 0:
+        raise ValueError("t must lie outside the domain")
+    c0 = zt * pow(n % p, p - 2, p) % p  # Z(t) / n
+    tm = fp.const(spec, t, (1,), device=xs.device)
+    invd = fp.batch_inv(spec, fp.sub_strict(spec, tm, xs))
+    return fp.mont_mul(spec, fp.mul_const(spec, xs, c0), invd)
+
+
+def instance_map_device(
+    spec: FpSpec,
+    domain: NttDomain,
+    mats_t,  # dict a/b/c -> transposed DeviceMatrix (encode_matrix_transposed)
+    t: int,
+    num_instance: int,
+    num_constraints: int,
+    xs: torch.Tensor,  # see lagrange_coeffs_device
+):
+    """QAP instance map on the device: per-variable a_i(t), b_i(t), c_i(t)
+    (r1cs_to_qap.rs:128-170) as Montgomery [L, num_vars] tensors, equal
+    mod p to LibsnarkReduction.instance_map_with_evaluation; the
+    input-consistency rows' u_{nc+j}(t) land on the instance variables
+    (r1cs_to_qap.rs:150-155)."""
+    u = lagrange_coeffs_device(spec, domain, t, xs)
+    a = sparse_matvec(spec, mats_t["a"], u)
+    b = sparse_matvec(spec, mats_t["b"], u)
+    c = sparse_matvec(spec, mats_t["c"], u)
+    a_inst = fp.add_strict(spec, a[:, :num_instance], u[:, num_constraints : num_constraints + num_instance])
+    return torch.cat([a_inst, a[:, num_instance:]], dim=1), b, c

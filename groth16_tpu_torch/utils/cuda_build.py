@@ -26,7 +26,21 @@ BASE_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", 
 HEADERS = ("field.cuh", "point.cuh")
 
 # library variant name -> (source file, extra nvcc defines)
-_LIBS: Dict[str, Tuple[str, Tuple[str, ...]]] = {"mont_mul": ("mont_mul.cu", ())}
+_LIBS: Dict[str, Tuple[str, Tuple[str, ...]]] = {
+    "mont_mul": ("mont_mul.cu", ()),
+    "ubench_ops": ("ubench_ops.cu", ()),
+}
+
+
+# From this many digits on, the point-add and scan kernels call the
+# Montgomery product instead of inlining it (csrc/field.cuh:
+# G16_OUTLINE_MUL): inlined, the L = 26 kernels take ptxas 12-15 minutes.
+OUTLINE_MUL_MIN_LIMBS = 26
+
+
+def _formula_defines(n_limbs: int, deg: int, nr: int) -> Tuple[str, ...]:
+    defines = (f"-DG16_LIMBS={n_limbs}", f"-DG16_D={deg}", f"-DG16_NR={nr}")
+    return defines + (("-DG16_OUTLINE_MUL",) if n_limbs >= OUTLINE_MUL_MIN_LIMBS else ())
 
 
 def point_add_variant(n_limbs: int, deg: int, mixed: bool, nr: int = 0) -> str:
@@ -35,8 +49,7 @@ def point_add_variant(n_limbs: int, deg: int, mixed: bool, nr: int = 0) -> str:
     if deg == 1:
         nr = 0  # the G1 kernels never read it: one library for every curve
     name = f"point_add_L{n_limbs}_d{deg}_{'mixed' if mixed else 'full'}_nr{nr}".replace("-", "m")
-    defines = (f"-DG16_LIMBS={n_limbs}", f"-DG16_D={deg}", f"-DG16_MIXED={int(mixed)}", f"-DG16_NR={nr}")
-    _LIBS.setdefault(name, ("point_add.cu", defines))
+    _LIBS.setdefault(name, ("point_add.cu", _formula_defines(n_limbs, deg, nr) + (f"-DG16_MIXED={int(mixed)}",)))
     return name
 
 
@@ -46,14 +59,14 @@ def suffix_scan_variant(n_limbs: int, deg: int, nr: int = 0) -> str:
     if deg == 1:
         nr = 0
     name = f"suffix_scan_L{n_limbs}_d{deg}_nr{nr}".replace("-", "m")
-    defines = (f"-DG16_LIMBS={n_limbs}", f"-DG16_D={deg}", f"-DG16_NR={nr}")
-    _LIBS.setdefault(name, ("suffix_scan.cu", defines))
+    _LIBS.setdefault(name, ("suffix_scan.cu", _formula_defines(n_limbs, deg, nr)))
     return name
 
 
 def curve_variants(n_limbs: int, nr: int) -> list:
-    """Every library the prove of one curve loads: K1, the four point-add
-    kernels of its G1 and G2, and the two suffix scans."""
+    """Every library the prove and the device setup of one curve load: K1,
+    the four point-add kernels of its G1 and G2, and the two suffix
+    scans."""
     return (
         ["mont_mul"]
         + [point_add_variant(n_limbs, deg, mixed, nr) for deg in (1, 2) for mixed in (False, True)]
@@ -80,6 +93,11 @@ def _target(name: str) -> Tuple[str, list, str]:
             h.update(fh.read())
     out = os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
     return out, flags, os.path.join(CSRC, src)
+
+
+def library_path(name: str) -> str:
+    """Where library `name` is (or will be) built."""
+    return _target(name)[0]
 
 
 def build(names: Iterable[str]) -> Dict[str, Dict]:

@@ -1,9 +1,10 @@
 """Phase timers (the ark_std start_timer!/end_timer! analog of the
-reference prover, prover.rs:35-125).
+reference prover, prover.rs:35-125) and speed-of-light operation counts.
 
-Port of `PhaseTimer` from `groth16_tpu/utils/profiling.py`.  PyTorch
-returns before the card finishes, so on a CUDA device every phase is
-fenced with `torch.cuda.synchronize()` at its start and its end.
+Port of `PhaseTimer` and the speed-of-light helpers of
+`groth16_tpu/utils/profiling.py`.  PyTorch returns before the card
+finishes, so on a CUDA device every phase is fenced with
+`torch.cuda.synchronize()` at its start and its end.
 """
 
 from __future__ import annotations
@@ -42,3 +43,28 @@ class PhaseTimer:
 
     def as_dict(self) -> Dict[str, float]:
         return {k: v for k, v in self.records}
+
+
+# -- speed-of-light models ------------------------------------------------------
+#
+# 32-bit multiply-adds of the limb engine's work, to divide by the card's
+# rate of them (an IMAD does one).  The rate is the caller's: the card's
+# measured one comes from utils/ubench.py (kernel V).  The JAX package
+# counts 8 L^2 operations per product instead, adds and masks included,
+# against a TPU rate: its VPU has no multiply-add.
+
+
+def mont_mul_u32_ops(n_limbs: int) -> int:
+    """One Montgomery product of L 15-bit digits (CIOS): the 2 L^2 digit
+    products (a_i * b_j and m * p_j), each one multiply-add into a column,
+    and the L products that derive m.  The masks, shifts and carries
+    around them are left out, so a bound from this count is a floor."""
+    return 2 * n_limbs * n_limbs + n_limbs
+
+
+def point_add_u32_ops(n_limbs: int, fp2: bool = False, mixed: bool = True) -> int:
+    """One complete a = 0 point addition: 13 field products for the mixed
+    (projective + affine) one, 12 for the full one, each 4 base-field
+    products over Fq2."""
+    products = (13 if mixed else 12) * (4 if fp2 else 1)
+    return products * mont_mul_u32_ops(n_limbs)

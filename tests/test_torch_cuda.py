@@ -1,7 +1,9 @@
 """The CUDA kernels of the port against their plain PyTorch versions, on
-the card: K1 (mont_mul), K4-K7 (point additions) and K2/K3 (the MSM
-suffix scans), then a small prove through every kernel, on each MSM scan
-path, against the exact prover.
+the card: K1 (mont_mul), K4-K7 (point additions), K2/K3 (the MSM suffix
+scans) and V (the op-rate microbenchmark), then batch inversion and
+to_affine, a small prove through every kernel, on each MSM scan path,
+against the exact prover, and a small device setup against the exact
+setup.
 
 CUDA kernels have no CPU mode, so every test here needs an NVIDIA GPU and
 `nvcc` (the kernels build at first use) and skips elsewhere.  The machine
@@ -22,11 +24,11 @@ import torch
 
 from groth16_tpu_torch.curves import codec, cuda_point
 from groth16_tpu_torch.curves.params import get_curve
-from groth16_tpu_torch.fields import cuda_fp
-from groth16_tpu_torch.fields.spec import int_to_limbs, make_spec
+from groth16_tpu_torch.fields import cuda_fp, fp
+from groth16_tpu_torch.fields.spec import decode, encode, int_to_limbs, make_spec
 from groth16_tpu_torch.msm import cuda_scan
 from groth16_tpu_torch.ref.curve import RefGroups
-from groth16_tpu_torch.utils import cuda_build
+from groth16_tpu_torch.utils import cuda_build, ubench
 
 pytestmark = pytest.mark.cuda
 
@@ -37,7 +39,7 @@ def dev():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
     # build every library this file loads up front, one nvcc each, all at
     # once (a library built at first use would build alone)
-    names = set()
+    names = {"ubench_ops"}
     for curve in ("bn254", "bls12_381"):
         c = get_curve(curve)
         names.update(cuda_build.curve_variants(make_spec(c.p).n_limbs, c.fp2_nonresidue))
@@ -222,3 +224,52 @@ def test_prover_on_the_card_matches_the_exact_prover(dev, fused):
     assert (got.a, got.b, got.c) == (want.a, want.b, want.c)
     pvk = prepare_verifying_key(vk)
     assert verify_proof(pvk, got, [15]) and not verify_proof(pvk, got, [16])
+
+
+@pytest.mark.parametrize("key", [op.key for op in ubench.OPS])
+def test_ubench_kernel_matches_plain(dev, key):
+    """Kernel V against its plain version: integer operations word for
+    word, f32 ones within F32_RTOL; n = 1000 is not a multiple of the
+    block."""
+    a, b = ubench.inputs(key, 1000, seed=4, device=dev)
+    before = ubench.LAUNCHES[key]
+    got = ubench.chains(key, a, b, 64)
+    torch.cuda.synchronize()
+    assert ubench.LAUNCHES[key] == before + 1
+    ubench.agree(key, got, ubench.chains_plain(key, a, b, 64))
+
+
+@pytest.mark.parametrize("curve", ["bn254", "bls12_381"])
+def test_batch_inv_and_to_affine_on_the_card(dev, curve):
+    """fp.batch_inv (K1 products, a chunked scan of several chunks) and
+    to_affine on the card give the exact inverses and affine points."""
+    c = get_curve(curve)
+    spec = make_spec(c.p)
+    r = random.Random(6)
+    n = 3000
+    vals = [r.randrange(c.p) for _ in range(n)]
+    vals[17] = 0
+    a = torch.from_numpy(encode(vals, spec).astype(np.int32)).to(dev)
+    before = cuda_fp.LAUNCHES["mont_mul"]
+    got = decode(fp.batch_inv(spec, a).cpu().numpy(), spec)
+    assert cuda_fp.LAUNCHES["mont_mul"] > before
+    assert got == [pow(v, c.p - 2, c.p) for v in vals]
+    lhs, rhs, add = _batches(curve, True, 40, seed=2)
+    g = codec.g2_ops(c)
+    p = g.add(*(codec.g2_to_device(c, x, dev) for x in (lhs, rhs)))  # Z != 1
+    assert codec.g2_from_device(c, g, p) == [add(x, y) for x, y in zip(lhs, rhs)]
+
+
+def test_setup_device_on_the_card_matches_the_exact_setup(dev):
+    """generator_torch.setup_device on cuda (K1, K4, K5) gives the exact
+    setup's key for the same Rng."""
+    from groth16_tpu_torch.protocol.generator import setup
+    from groth16_tpu_torch.protocol.generator_torch import setup_device
+    from groth16_tpu_torch.r1cs.circuits import DummyCircuit
+    from groth16_tpu_torch.utils.rng import Rng
+
+    before = {**cuda_fp.LAUNCHES, **cuda_point.LAUNCHES}
+    pk, _ = setup_device(DummyCircuit(6, 13), "bls12_381", Rng(3))
+    after = {**cuda_fp.LAUNCHES, **cuda_point.LAUNCHES}
+    assert all(after[k] > before[k] for k in ("mont_mul", "add_g1", "add_g2"))
+    assert pk == setup(DummyCircuit(6, 13), "bls12_381", Rng(3))[0]

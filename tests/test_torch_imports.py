@@ -36,4 +36,10 @@ def test_no_jax_imports(path):
 def test_scan_sees_the_package():
     names = {os.path.relpath(p, ROOT) for p in _sources()}
     assert "chip_smoke.py" in names
-    assert os.path.join("groth16_tpu_torch", "protocol", "prover_torch.py") in names
+    for module in (
+        ("protocol", "prover_torch.py"),
+        ("protocol", "generator_torch.py"),
+        ("msm", "fixed_base.py"),
+        ("utils", "ubench.py"),
+    ):
+        assert os.path.join("groth16_tpu_torch", *module) in names

@@ -1,6 +1,7 @@
-"""Port radix-2 NTT domain against the JAX package's NttDomain on the
-CPU (bn254 Fr, n = 2^6 and 2^8).  Tolerance: equal mod p (both return
-exact digits < 2p)."""
+"""Port radix-2 NTT domain against the JAX package's exact engine
+(`groth16_tpu.ref.domain.RefDomain`, the reference its own NttDomain is
+tied to) on the CPU (bn254 Fr, n = 2^6 and 2^8).  Tolerance: equal mod p
+(the port returns exact digits < 2p)."""
 
 import random
 
@@ -9,11 +10,9 @@ import pytest
 import torch
 
 from groth16_tpu.curves.params import get_curve
-from groth16_tpu.fields.spec import decode as jdecode
-from groth16_tpu.ntt.ntt import NttDomain as JaxDomain
+from groth16_tpu.ref.domain import RefDomain
 from groth16_tpu_torch.fields.spec import decode, encode, make_spec
 from groth16_tpu_torch.ntt.ntt import NttDomain
-from groth16_tpu_torch.ref.domain import RefDomain
 
 torch.set_num_threads(1)
 
@@ -30,10 +29,6 @@ def test_ntt_matches_jax(log_n, op):
 
     dom = NttDomain(c.fr, n, device="cpu")
     got = decode(getattr(dom, op)(torch.from_numpy(enc.astype(np.int32))).numpy(), s)
-    jdom = JaxDomain(c.fr, n)
-    want = jdecode(np.asarray(getattr(jdom, op)(enc)), jdom.spec)
-    assert got == want
-
     ref = RefDomain(c.fr, n)
     if op.startswith("coset_"):
         ref, op = ref.get_coset(c.fr.generator), op[len("coset_"):]

@@ -150,9 +150,13 @@ def _assert_same(a, b, where):
 def test_entry_points_run_on_the_card_unless_asked(monkeypatch):
     """The default device is the card; without one it raises, and only
     an explicit device="cpu" runs the plain versions."""
+    from groth16_tpu_torch.protocol.generator_torch import setup_device
+
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError):
         resolve_device()
     with pytest.raises(RuntimeError):
         TorchProver(None, None)  # raises before it reads the key
+    with pytest.raises(RuntimeError):
+        setup_device(None, "bn254", None)  # raises before it synthesizes
     assert resolve_device("cpu").type == "cpu"
