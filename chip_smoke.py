@@ -23,11 +23,13 @@ Phases, each printing one JSON line:
   kernels   K1 (mont_mul) and K4-K7 (point additions) at N = 2^16, and K2/K3
             (the MSM suffix scans) at the shapes of the prove's largest G1
             window group and of its G2 window group (rows, chunks and every
-            step of each column), held digit for digit
+            step of each column) at the segment count S the card chooses,
+            held digit for digit
             against their plain PyTorch versions on the same inputs (taken
             from the proving key's own points, with infinity, P+P, P+(-P)
             and (0, 0) lanes); each timed with CUDA events beside its plain
-            version and its bound;
+            version and its bound, the scans also at S = 1 and on the key's
+            own (nearly all infinity) rows;
   reference the prove of a 2^6 DummyCircuit on the card against the exact
             prover, coordinate for coordinate;
   main_path TorchProver(pk, matrices) on cuda with the default fused MSM
@@ -50,12 +52,13 @@ Phases, each printing one JSON line:
             with a 2^20 domain set up on the device, 64 sampled points of each
             query recomputed on the host from the scalars the device built,
             the L = 26 builds of K4/K5 and of K2/K3 (at this prove's shapes,
-            every step) against their plain versions,
+            every step, and timed over the S sweep SCAN_SWEEP) against their
+            plain versions,
             then TorchProver on cuda: one prove with the counters set to 0 just
             before and read just after (K1-K5 must launch, no plain version on
             the card), 2 steady prove_encoded_host calls, the last one
-            phase-timed; every proof must verify with public input 15 and fail
-            with 16.
+            phase-timed, and one under torch.profiler; every proof must verify
+            with public input 15 and fail with 16.
 
 Then the `kernels` line (every kernel with its launches on each path), the
 card's name and power limit as nvidia-smi gives them, and last
@@ -542,15 +545,17 @@ def _point_kernels(dpk, c, n, device, mixed):
     return entries
 
 
-def _scan_rows(g, pts, R, npad, rng, device):
+def _scan_rows(g, pts, R, npad, rng, device, fill=True):
     """[R, npad, 2*ce] affine rows laid out as the fused MSM path gathers
     them: row r a random permutation of lane r % lanes of `pts`, Fq2
     coordinates tower-major, a random sign bit in bit 31 of each row's
-    first word.  Every slot holds one of its lane's finite points (cycled
-    through) but one in 16, which holds the infinity (0, 0), as does the
-    padding: the DummyCircuit's a, b and B queries are nearly all infinity
-    (15 finite points in the 9 rows of the 2^20 G1 scan, 4 in the G2 one),
-    which would leave the scan's arithmetic all but unexercised."""
+    first word.  With `fill`, every slot holds one of its lane's finite
+    points (cycled through) but one in 16, which holds the infinity
+    (0, 0), as does the padding: the DummyCircuit's a, b and B queries are
+    nearly all infinity (15 finite points in the 9 rows of the 2^20 G1
+    scan, 4 in the G2 one), which would leave the scan's arithmetic all
+    but unexercised.  Without it, the key's own points, infinities and
+    all."""
     import numpy as np
     import torch
 
@@ -559,11 +564,14 @@ def _scan_rows(g, pts, R, npad, rng, device):
     lanes, n = g.batch_shape(pts)
     finite = ~g.is_infinity(pts)
     slots = torch.arange(n, device=device)
-    src = torch.stack([
-        f[slots % f.numel()] if f.numel() else slots
-        for f in (torch.nonzero(finite[lane]).reshape(-1) for lane in range(lanes))
-    ])
-    inf = ~finite.any(dim=-1, keepdim=True) | (slots % 16 == 15)
+    if fill:
+        src = torch.stack([
+            f[slots % f.numel()] if f.numel() else slots
+            for f in (torch.nonzero(finite[lane]).reshape(-1) for lane in range(lanes))
+        ])
+        inf = ~finite.any(dim=-1, keepdim=True) | (slots % 16 == 15)
+    else:
+        src, inf = slots.expand(lanes, n), ~finite
 
     def rows_of(coord):  # [*cs, lanes, n] -> [lanes, n, ce]
         coord = torch.gather(coord, -1, src.expand(coord.shape))
@@ -594,11 +602,30 @@ def timed_once(fn):
     return out, t0.elapsed_time(t1)
 
 
+# S values of the segment sweep of the scans (filled rows, those that leave
+# a segment SWEEP_MIN_STEPS steps), beside the chosen one
+SCAN_SWEEP = (1, 4, 8, 16, 32, 64, 128)
+SWEEP_MIN_STEPS = 8
+# steps a segment of the 2^20 prove's sweep (MIN_SEGMENT_STEPS; S = 1024 //
+# steps for the scans whose columns leave SMs idle)
+PROVE_SEGMENT_STEPS = (1024, 128, 64, 32, 16)
+
+
+def scan_nbytes(R, steps, C, ce, live):
+    """Bytes a suffix scan must move: y of every step (an infinity test
+    needs all of it), x of the `live` finite steps, a prefix row of 3 ce
+    words a step and the 3 ce-word total of each of the R*C columns."""
+    return (R * steps * ce + live * ce + R * steps * 3 * ce + R * C * 3 * ce) * 4
+
+
 def _scan_kernels(dpk, c, rng, device):
     """K2/K3 against their plain version at the shapes the prove gives
     them, all K steps of each column: the G1 window group with the most
-    points, and the G2 MSM.  The plain version (one step at a time) is
-    timed from the one run that is checked."""
+    points, and the G2 MSM.  Both run at the S the card chooses
+    (`cuda_scan.scan_segments`), the plain version at the same S, timed
+    from the one run that is checked.  Each is timed at S = 1 and at the
+    chosen S, on filled rows and on the key's own rows, and over
+    SCAN_SWEEP."""
     import torch
 
     from groth16_tpu_torch.curves import codec, cuda_point
@@ -618,35 +645,48 @@ def _scan_kernels(dpk, c, rng, device):
     for name, tag, g, pts, replaces in specs:
         k = g.k
         D, L = k.tower_deg, k.spec.n_limbs
+        nr = getattr(k, "nr_int", None)
         ce = D * L
         lanes, n = g.batch_shape(pts)
         plan = msm_plan(n, lanes, sbits, ce)
         R, K, C = lanes * plan.wg, plan.K, plan.C
         npad = K * C
-        rows = _scan_rows(g, tuple(x[..., :npad] for x in pts), R, npad, rng, device)
-        if D == 1:
-            run = lambda: cuda_scan.suffix_scan_g1_rows(k.spec, g.b3_val, rows, K, C)  # noqa: E731
-        else:
-            run = lambda: cuda_scan.suffix_scan_g2_rows(k.spec, k.nr_int, g.b3_val, rows, K, C)  # noqa: E731
-        plain_ops = cuda_point._plain_ops(k.spec, getattr(k, "nr_int", None))
-        run_plain = lambda: cuda_scan.suffix_scan_plain(plain_ops, g.b3_val, rows, K, C)  # noqa: E731
-        got = run()
-        want, plain_ms = timed_once(run_plain)
+        pts = tuple(x[..., :npad] for x in pts)
+        rows = _scan_rows(g, pts, R, npad, rng, device)
+        key_rows = _scan_rows(g, pts, R, npad, rng, device, fill=False)
+        S = cuda_scan.scan_segments(R, K, C, device)
+
+        def run(r, seg):
+            if D == 1:
+                return cuda_scan.suffix_scan_g1_rows(k.spec, g.b3_val, r, K, C, segments=seg)
+            return cuda_scan.suffix_scan_g2_rows(k.spec, nr, g.b3_val, r, K, C, segments=seg)
+
+        plain_ops = cuda_point._plain_ops(k.spec, nr)
+        got = run(rows, S)
+        want, plain_ms = timed_once(lambda: cuda_scan.suffix_scan_plain(plain_ops, g.b3_val, rows, K, C, S))
         got, want = [got[0], *got[1]], [want[0], *want[1]]
         if not all(torch.equal(x, y) for x, y in zip(got, want)):
-            raise AssertionError(f"{tag} {name} on {c.name}: kernel and plain version disagree")
-        ms = time_ms(run)
+            raise AssertionError(f"{tag} {name} on {c.name} at S = {S}: kernel and plain version disagree")
+        ms, ms_s1 = time_ms(lambda: run(rows, S)), time_ms(lambda: run(rows, 1))
+        key_ms, key_ms_s1 = time_ms(lambda: run(key_rows, S)), time_ms(lambda: run(key_rows, 1))
         # a step whose affine operand is infinity passes the accumulator on
-        live = int((rows[..., ce:] != 0).any(dim=-1).sum())
-        nbytes = (R * npad * (2 + 3) * ce + 3 * ce * R * C) * 4
+        live, key_live = (int((x[..., ce:] != 0).any(dim=-1).sum()) for x in (rows, key_rows))
+        nbytes = scan_nbytes(R, npad, C, ce, live)
+        key_bound = bound(scan_nbytes(R, npad, C, ce, key_live), key_live * point_add_u32_ops(L, D == 2))
         row = {"kernel": f"{tag} {name}", "curve": c.name, "rows_steps_chunks": [R, K, C],
-               "live": live, "tolerance": 0,
-               "max_abs_err": max_abs_err(got, want), "ms": ms, "plain_ms": plain_ms,
-               **bound(nbytes, live * point_add_u32_ops(L, D == 2))}
+               "segments": S, "live": live, "tolerance": 0,
+               "max_abs_err": max_abs_err(got, want), "ms": ms, "ms_s1": ms_s1, "plain_ms": plain_ms,
+               **bound(nbytes, live * point_add_u32_ops(L, D == 2)),
+               "key_rows": {"live": key_live, "ms": key_ms, "ms_s1": key_ms_s1,
+                            "bound_ms": key_bound["bound_ms"], "bound_by": key_bound["bound_by"]}}
+        sweep = {s for s in SCAN_SWEEP if s * SWEEP_MIN_STEPS <= K} | {S}
+        row["sweep_ms"] = {s: time_ms(lambda: run(rows, s), reps=3) for s in sorted(sweep)}
+        row["key_rows"]["sweep_ms"] = {s: time_ms(lambda: run(key_rows, s), reps=3) for s in sorted(sweep)}
+        row["card"] = card_line()
         emit({"phase": "kernels", **row})
         entries[name] = {
             "name": name, "route": "cuda", "source": "groth16_tpu_torch/csrc/suffix_scan.cu",
-            "replaces": replaces, **_kline(row),
+            "replaces": replaces, "segments": S, **_kline(row),
         }
     return entries
 
@@ -989,6 +1029,32 @@ def phase_bls(device):
     out["steady_prove_s"] = walls
     out["phases_s"] = ptimer.as_dict()
     out["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    r, s = rng.field_element(c.r), rng.field_element(c.r)
+    proof, prof = profile_prove(lambda: prover.prove_encoded_host(z_enc, r, s))
+    proofs.append(proof)
+    if prof["device_busy_s"] is not None:
+        prof["device_busy_share"] = prof["device_busy_s"] / prof["profiled_wall_s"]
+    out["profile"] = prof
+    # the steady prove with the segment chooser's steps a segment set to
+    # each of PROVE_SEGMENT_STEPS (S = K // steps where the columns leave
+    # SMs idle; 1,024 steps: S = 1), two proves each
+    from groth16_tpu_torch.msm import cuda_scan
+
+    chosen, by_steps = cuda_scan.MIN_SEGMENT_STEPS, {}
+    try:
+        for steps in PROVE_SEGMENT_STEPS:
+            cuda_scan.MIN_SEGMENT_STEPS = steps
+            by_steps[steps] = []
+            for _ in range(2):
+                r, s = rng.field_element(c.r), rng.field_element(c.r)
+                t0 = time.time()
+                proofs.append(prover.prove_encoded_host(z_enc, r, s))
+                torch.cuda.synchronize()
+                by_steps[steps].append(time.time() - t0)
+    finally:
+        cuda_scan.MIN_SEGMENT_STEPS = chosen
+    out["steady_prove_s_by_segment_steps"] = by_steps
+    out["card"] = card_line()
     _step(out, "prove")
     t0 = time.time()
     pvk = prepare_verifying_key(vk)

@@ -146,15 +146,49 @@ def test_point_add_kernels_match_plain(dev, curve, group, mixed):
     assert dec(c, g, got) == [add(x, y) for x, y in zip(lhs, rhs)]
 
 
+def _scan_points(prefix, totals, spec, D):
+    """The points of a scan's prefix rows and chunk totals as tuples of
+    Python ints: one (X, Y, Z) a point, each coordinate D components,
+    digits read as they are (Montgomery form scales every coordinate
+    alike)."""
+    L = spec.n_limbs
+    pre = prefix.reshape(-1, 3, D, L).permute(3, 1, 2, 0)  # [L, 3, D, N]
+    tot = torch.stack([t.reshape(L, D, -1) for t in totals], dim=1)
+    planes = torch.cat([pre, tot], dim=-1).cpu().numpy()
+    coords = [[decode(planes[:, i, d], spec, mont=False) for d in range(D)] for i in range(3)]
+    return [tuple(tuple(c[j] for c in coord) for coord in coords) for j in range(planes.shape[-1])]
+
+
+def _same_point(a, b, p, nr):
+    """Projective (X, Y, Z) over Fq (D = 1) or Fq2 = Fq[u]/(u^2 - nr):
+    X1 Z2 = X2 Z1, Y1 Z2 = Y2 Z1, and Z = 0 on both or neither."""
+
+    def mul(x, y):
+        if len(x) == 1:
+            return (x[0] * y[0] % p,)
+        return ((x[0] * y[0] + nr * x[1] * y[1]) % p, (x[0] * y[1] + x[1] * y[0]) % p)
+
+    (x1, y1, z1), (x2, y2, z2) = a, b
+    if any(v % p for v in z1) != any(v % p for v in z2):
+        return False
+    return mul(x1, z2) == mul(x2, z1) and mul(y1, z2) == mul(y2, z1)
+
+
+@pytest.mark.parametrize("segments", [1, 2, 3])
 @pytest.mark.parametrize("curve", ["bn254", "bls12_381"])
 @pytest.mark.parametrize("group", ["g1", "g2"])
-def test_suffix_scan_kernels_match_plain(dev, curve, group):
-    """K2/K3 against their plain version: rows with random signs,
-    infinities, and steps that double or cancel; R*C = 150 columns is not
-    a multiple of the 64-thread block."""
+def test_suffix_scan_kernels_match_plain(dev, curve, group, segments):
+    """K2/K3 at S = segments against their plain version at the same S:
+    rows with random signs, infinities, and steps that double or cancel,
+    and in row 0 a block of 40 chunks (a whole warp of columns) whose rows
+    are all infinity at steps 1-3 (the early-out).  K = 7, which 3 does not
+    divide, so the last segment is shorter; R*C = 150 columns is not a
+    multiple of the 64-thread block.  Digit-equal to the plain version;
+    for S > 1 the same points as S = 1, projectively; one scan launch for
+    S = 1, else two and the ceil(log2(S - 1)) full adds of the carries."""
     c = get_curve(curve)
     g2 = group == "g2"
-    R, K, C = 3, 4, 50
+    R, K, C = 3, 7, 50
     n = R * K * C
     lhs, rhs, _ = _batches(curve, g2, n // 2, seed=7)
     pts = lhs + rhs  # storage order [r, k, c]; lhs and rhs share points
@@ -171,21 +205,35 @@ def test_suffix_scan_kernels_match_plain(dev, curve, group):
         return t.reshape(-1, n).T
 
     rows = torch.cat([rows_of(x), rows_of(y)], dim=-1).contiguous()
+    rows.view(R, K, C, -1)[0, 1:4, :40] = 0
     rows[:, 0] |= torch.from_numpy(rng.integers(0, 2, n).astype(np.int32)) * cuda_scan.SIGN_BIT
     rows = rows.reshape(R, K * C, -1).to(dev)
     k = g.k
-    ops = cuda_point._plain_ops(k.spec, k.nr_int if g2 else None)
+    nr = k.nr_int if g2 else None
+    ops = cuda_point._plain_ops(k.spec, nr)
     name = "suffix_scan_g2" if g2 else "suffix_scan_g1"
-    before = cuda_scan.LAUNCHES[name]
-    if g2:
-        got = cuda_scan.suffix_scan_g2_rows(k.spec, k.nr_int, g.b3_val, rows, K, C)
-    else:
-        got = cuda_scan.suffix_scan_g1_rows(k.spec, g.b3_val, rows, K, C)
+    add = "add_g2" if g2 else "add_g1"
+
+    def scan(S):
+        if g2:
+            return cuda_scan.suffix_scan_g2_rows(k.spec, nr, g.b3_val, rows, K, C, segments=S)
+        return cuda_scan.suffix_scan_g1_rows(k.spec, g.b3_val, rows, K, C, segments=S)
+
+    before = (cuda_scan.LAUNCHES[name], cuda_point.LAUNCHES[add])
+    got = scan(segments)
     torch.cuda.synchronize()
-    assert cuda_scan.LAUNCHES[name] == before + 1
-    want = cuda_scan.suffix_scan_plain(ops, g.b3_val, rows, K, C)
+    after = (cuda_scan.LAUNCHES[name], cuda_point.LAUNCHES[add])
+    carry_adds = 0 if segments == 1 else (segments - 2).bit_length()
+    assert after == (before[0] + (1 if segments == 1 else 2), before[1] + carry_adds)
+    want = cuda_scan.suffix_scan_plain(ops, g.b3_val, rows, K, C, segments)
     for x, y in zip([got[0], *got[1]], [want[0], *want[1]]):
         assert torch.equal(x, y)
+    if segments > 1:
+        one = scan(1)
+        D = 2 if g2 else 1
+        a = _scan_points(got[0], got[1], k.spec, D)
+        b = _scan_points(one[0], one[1], k.spec, D)
+        assert all(_same_point(u, v, k.spec.modulus, nr or 0) for u, v in zip(a, b))
 
 
 @pytest.mark.parametrize("fused", [True, False], ids=["fused", "capture"])

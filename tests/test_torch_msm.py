@@ -18,8 +18,15 @@ from groth16_tpu.ref.curve import RefGroups
 from groth16_tpu.ref.group import g1_jacobian, g2_jacobian
 from groth16_tpu_torch.config import CONFIG, configure
 from groth16_tpu_torch.curves import codec
-from groth16_tpu_torch.fields.spec import make_spec
-from groth16_tpu_torch.msm.cuda_scan import SIGN_BIT, suffix_scan_g1_rows, suffix_scan_g2_rows
+from groth16_tpu_torch.fields.spec import decode, make_spec
+from groth16_tpu_torch.msm import cuda_scan
+from groth16_tpu_torch.msm.cuda_scan import (
+    SIGN_BIT,
+    choose_segments,
+    segment_steps,
+    suffix_scan_g1_rows,
+    suffix_scan_g2_rows,
+)
 from groth16_tpu_torch.msm.pippenger import (
     CAPTURE_BUCKET_COST,
     FUSED_BUCKET_COST,
@@ -64,6 +71,39 @@ def _exact(ops, pts, scalars):
     return ops.to_affine(ops.msm(pts, scalars))
 
 
+def _assert_points(g, pt, want):
+    """Device projective points (Montgomery digits; one point or a batch)
+    equal the exact affine points `want` (one, or a list in the batch's
+    row-major order; None at infinity): Z = 0 exactly at infinity, and
+    X = x Z, Y = y Z mod p elsewhere (Montgomery form scales X, Y and Z
+    alike).  The same equality as after conversion to affine, with no
+    inversion."""
+    k = g.k
+    spec, D = k.spec, k.tower_deg
+    p = spec.modulus
+    if pt[2].dim() == k.coord_ndim:
+        pt, want = tuple(x[..., None] for x in pt), [want]
+
+    def ints(t):  # [L, (D,) *batch] -> one D-tuple per point
+        t = t.reshape(spec.n_limbs, D, -1).cpu().numpy()
+        return list(zip(*[decode(t[:, d], spec, mont=False) for d in range(D)]))
+
+    def mul(a, b):
+        if D == 1:
+            return (a[0] * b[0] % p,)
+        return ((a[0] * b[0] + k.nonresidue * a[1] * b[1]) % p, (a[0] * b[1] + a[1] * b[0]) % p)
+
+    def tup(v):
+        return v if isinstance(v, tuple) else (v,)
+
+    X, Y, Z = (ints(x) for x in pt)
+    assert [not any(v % p for v in z) for z in Z] == [w is None for w in want]
+    for x, y, z, w in zip(X, Y, Z, want):
+        if w is not None:
+            assert tuple(v % p for v in x) == mul(tup(w[0]), z)
+            assert tuple(v % p for v in y) == mul(tup(w[1]), z)
+
+
 @pytest.mark.parametrize("n,bits", [(1, 254), (7, 64), (64, 64), (300, 64)])
 def test_msm_g1_lanes(n, bits):
     c = get_curve(CURVE)
@@ -76,9 +116,8 @@ def test_msm_g1_lanes(n, bits):
     scalars = torch.stack([codec.scalars_to_device(s, fr, "cpu") for s in scal])
     g = codec.g1_ops(c)
     acc = msm_device_lanes(g, points, scalars, min(bits, c.r.bit_length()))
-    got = codec.g1_from_device(c, g, acc)
     ops = g1_jacobian(c)
-    assert got == [_exact(ops, p, s) for p, s in zip(lanes, scal)]
+    _assert_points(g, acc, [_exact(ops, p, s) for p, s in zip(lanes, scal)])
 
 
 @pytest.mark.parametrize("n,bits", [(1, 64), (7, 64), (64, 64), (300, 64)])
@@ -91,7 +130,7 @@ def test_msm_g2(n, bits):
     g = codec.g2_ops(c)
     acc = msm_device(g, codec.g2_to_device(c, pts, "cpu"), codec.scalars_to_device(scal, fr, "cpu"),
                      min(bits, c.r.bit_length()))
-    assert codec.g2_from_device(c, g, acc) == _exact(g2_jacobian(c), pts, scal)
+    _assert_points(g, acc, _exact(g2_jacobian(c), pts, scal))
 
 
 @pytest.mark.parametrize("group", ["g1", "g2"])
@@ -112,9 +151,8 @@ def test_msm_real_carry_window(group):
     to_dev = codec.g2_to_device if g2 else codec.g1_to_device
     acc = msm_device(g, to_dev(c, pts, "cpu"), codec.scalars_to_device(scal, fr, "cpu"), bits,
                      window_bits=cbits)
-    dec = codec.g2_from_device if g2 else codec.g1_from_device
     ops = (g2_jacobian if g2 else g1_jacobian)(c)
-    assert dec(c, g, acc) == _exact(ops, pts, scal)
+    _assert_points(g, acc, _exact(ops, pts, scal))
 
 
 @pytest.mark.parametrize("signed", [False, True], ids=["unsigned", "signed"])
@@ -135,7 +173,7 @@ def test_msm_window_groups(monkeypatch, signed):
     g = codec.g1_ops(c)
     acc = msm_device(g, codec.g1_to_device(c, pts, "cpu"), codec.scalars_to_device(scal, fr, "cpu"),
                      bits, window_bits=cbits)
-    assert codec.g1_from_device(c, g, acc) == _exact(g1_jacobian(c), pts, scal)
+    _assert_points(g, acc, _exact(g1_jacobian(c), pts, scal))
 
 
 def test_window_chooser_matches_jax_capture_path():
@@ -176,8 +214,7 @@ def test_msm_capture_path(group):
     to_dev = codec.g2_to_device if g2 else codec.g1_to_device
     with configure(msm_fused_scan=False):
         acc = msm_device(g, to_dev(c, pts, "cpu"), codec.scalars_to_device(scal, fr, "cpu"), bits)
-    dec = codec.g2_from_device if g2 else codec.g1_from_device
-    assert dec(c, g, acc) == _exact((g2_jacobian if g2 else g1_jacobian)(c), pts, scal)
+    _assert_points(g, acc, _exact((g2_jacobian if g2 else g1_jacobian)(c), pts, scal))
 
 
 def test_first_ge_histogram_matches_jax():
@@ -198,11 +235,13 @@ def test_first_ge_histogram_matches_jax():
     assert np.array_equal(got.numpy().reshape(6, B - 1), want)
 
 
+@pytest.mark.parametrize("segments", [1, 2, 3])
 @pytest.mark.parametrize("group", ["g1", "g2"])
-def test_suffix_scan_plain_matches_exact(group):
-    """The plain version of K2/K3 on rows with negated, infinite, doubled
-    and cancelling steps: every prefix value and chunk total equals the
-    exact suffix sum of its chunk."""
+def test_suffix_scan_plain_matches_exact(group, segments):
+    """The plain version of K2/K3, its K = 3 steps cut into 1, 2 (of 2 and
+    1 steps) or 3 segments, on rows with negated, infinite, doubled and
+    cancelling steps: every prefix value and chunk total equals the exact
+    suffix sum of its chunk."""
     c = get_curve(CURVE)
     ref = RefGroups(CURVE)
     g2 = group == "g2"
@@ -230,17 +269,15 @@ def test_suffix_scan_plain_matches_exact(group):
     rows[:, 0] |= torch.tensor(signs, dtype=torch.int32) * SIGN_BIT
     rows = rows.reshape(R, K * C, -1)
     if g2:
-        prefix, totals = suffix_scan_g2_rows(g.k.spec, g.k.nr_int, g.b3_val, rows, K, C)
+        prefix, totals = suffix_scan_g2_rows(g.k.spec, g.k.nr_int, g.b3_val, rows, K, C, segments)
     else:
-        prefix, totals = suffix_scan_g1_rows(g.k.spec, g.b3_val, rows, K, C)
+        prefix, totals = suffix_scan_g1_rows(g.k.spec, g.b3_val, rows, K, C, segments)
     L = g.k.spec.n_limbs
     ce = prefix.shape[-1] // 3
     flat = prefix.reshape(n, 3 * ce).T
     coords = tuple(flat[i * ce : (i + 1) * ce] for i in range(3))
     if g2:
         coords = tuple(t.reshape(2, L, n).movedim(0, 1) for t in coords)
-    dec = codec.g2_from_device if g2 else codec.g1_from_device
-    got = dec(c, g, coords)
     signed = [neg(p) if s and p is not None else p for p, s in zip(pts, signs)]
     want = [None] * n
     for r in range(R):
@@ -250,5 +287,41 @@ def test_suffix_scan_plain_matches_exact(group):
                 e = (r * K + k) * C + cc
                 acc = signed[e] if acc is None else (acc if signed[e] is None else add(acc, signed[e]))
                 want[e] = acc
-    assert got == want
-    assert dec(c, g, totals) == [want[r * K * C + cc] for r in range(R) for cc in range(C)]
+    _assert_points(g, coords, want)
+    _assert_points(g, totals, [want[r * K * C + cc] for r in range(R) for cc in range(C)])
+
+
+def test_segment_chooser():
+    """S on a card of 132 SMs (blocks of 64 threads): 1 once the columns
+    give every SM a block, else as many segments as keep 64 steps each;
+    1 on the CPU (no SMs)."""
+    assert choose_segments(4 * 512, 1024, 132) == 16  # the 2^20 G2 scan
+    assert choose_segments(9 * 512, 1024, 132) == 16  # the 2^20 G1 scan
+    assert choose_segments(22 * 512, 64, 132) == 1  # the 2^16 G2 scan
+    assert choose_segments(66 * 512, 64, 132) == 1  # the 2^16 G1 scan
+    assert choose_segments(132 * 64 - 1, 128, 132) == 2
+    assert choose_segments(12, 127, 132) == 1  # too few steps for two segments
+    assert choose_segments(4 * 512, 1024, 0) == 1
+    assert [segment_steps(7, s) for s in (1, 2, 3, 4, 9)] == [(1, 7), (2, 4), (3, 3), (4, 2), (7, 1)]
+    assert segment_steps(4, 3) == (2, 2)  # no empty segment
+
+
+@pytest.mark.parametrize("group", ["g1", "g2"])
+def test_msm_fused_segmented_scan(monkeypatch, group):
+    """The fused path with every scan cut into 2 and then 3 segments (the
+    chooser patched: on the CPU it picks 1), n = 64 (K = 8 steps): the
+    exact engine's MSM."""
+    c = get_curve(CURVE)
+    ref = RefGroups(CURVE)
+    fr = make_spec(c.r)
+    n, bits = 64, 32
+    g2 = group == "g2"
+    pts = _points(ref, n, g2, seed=41)
+    scal = _scalars(n, bits, seed=42, modulus=c.r)
+    g = (codec.g2_ops if g2 else codec.g1_ops)(c)
+    to_dev = codec.g2_to_device if g2 else codec.g1_to_device
+    want = _exact((g2_jacobian if g2 else g1_jacobian)(c), pts, scal)
+    for segments in (2, 3):
+        monkeypatch.setattr(cuda_scan, "choose_segments", lambda *card: segments)
+        acc = msm_device(g, to_dev(c, pts, "cpu"), codec.scalars_to_device(scal, fr, "cpu"), bits)
+        _assert_points(g, acc, want)

@@ -6,6 +6,7 @@ public input.  Also: the key carried over from the JAX package's
 upload_proving_key equals the port's own upload, digit for digit."""
 
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -88,14 +89,23 @@ def test_prover_silly_bn254():
         assert jverify(jprepare(jvk), JProof(curve=got.curve, a=got.a, b=got.b, c=got.c), [a * b % c.r])
 
 
+NCON, NVAR = (1 << 6) - 2, 1 << 5
+
+
+@functools.lru_cache(maxsize=None)
+def _dummy_setup(curve):
+    """The exact setup of the 2^6 DummyCircuit and an (r, s) from the same
+    Rng, made once per curve for this module's tests."""
+    c = get_curve(curve)
+    rng = JRng(0x2B6)
+    jpk, jvk = jsetup(JDummy(NVAR, NCON), curve, rng)
+    return jpk, jvk, rng.field_element(c.r), rng.field_element(c.r)
+
+
 @pytest.mark.parametrize("curve", ["bn254", "bls12_381"])
 def test_prover_dummy_2p6(curve):
-    c = get_curve(curve)
-    ncon, nvar = (1 << 6) - 2, 1 << 5
-    rng = JRng(0x2B6)
-    jpk, jvk = jsetup(JDummy(nvar, ncon), curve, rng)
-    r, s = rng.field_element(c.r), rng.field_element(c.r)
-    _check(curve, jpk, jvk, JDummy(nvar, ncon, a=3, b=5), DummyCircuit(nvar, ncon, a=3, b=5), 15, r, s)
+    jpk, jvk, r, s = _dummy_setup(curve)
+    _check(curve, jpk, jvk, JDummy(NVAR, NCON, a=3, b=5), DummyCircuit(NVAR, NCON, a=3, b=5), 15, r, s)
 
 
 def test_device_key_carried_over_from_jax():
@@ -103,8 +113,8 @@ def test_device_key_carried_over_from_jax():
 
     curve = "bn254"
     c = get_curve(curve)
-    ncon, nvar = (1 << 6) - 2, 1 << 5
-    jpk, _ = jsetup(JDummy(nvar, ncon), curve, JRng(0xD0))
+    ncon, nvar = NCON, NVAR
+    jpk = _dummy_setup(curve)[0]
     cs = _synth(DummyCircuit(nvar, ncon, a=3, b=5), c.r)
     jdpk = jupload(jpk, cs.to_matrices())
     leaves = {f: getattr(jdpk, f) for f in LEAF_FIELDS}
