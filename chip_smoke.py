@@ -20,22 +20,29 @@ Phases, each printing one JSON line:
             rate is printed beside it);
   setup     exact-engine setup of the bn254 DummyCircuit with a 2^16 domain
             (65,534 constraints, 32,768 variables) from a fixed seed;
-  kernels   K1 (mont_mul) and K4-K7 (point additions) at N = 2^16, and K2/K3
-            (the MSM suffix scans) at the shapes of the prove's largest G1
-            window group and of its G2 window group (rows, chunks and every
+  kernels   K1 (mont_mul) and K4-K7 (point additions) at N = 2^16, the
+            Horner kernel at every MSM shape of the prove (lanes, c,
+            windows), and
+            K2/K3 (the MSM suffix scans) at the shapes of the prove's largest
+            G1 window group and of its G2 window group (rows, chunks and every
             step of each column) at the segment count S the card chooses,
             held digit for digit
             against their plain PyTorch versions on the same inputs (taken
             from the proving key's own points, with infinity, P+P, P+(-P)
             and (0, 0) lanes); each timed with CUDA events beside its plain
             version and its bound, the scans also at S = 1 and on the key's
-            own (nearly all infinity) rows;
+            own (nearly all infinity) rows; K4/K5 also held against the
+            plain version at ADD_CHECK_N points and timed over ADD_SWEEP_N
+            (launches queued behind a spin kernel, so that the host's
+            launch gaps drop out) beside the launch floor (an empty
+            kernel);
   reference the prove of a 2^6 DummyCircuit on the card against the exact
             prover, coordinate for coordinate;
   main_path TorchProver(pk, matrices) on cuda with the default fused MSM
             scan: one prove with every launch counter set to 0 just before
-            and read just after (K1, K2, K3, K4 and K5 must have launched,
-            no plain version may have run on the card), then 3 steady
+            and read just after (K1, K2, K3, K4, K5 and the Horner kernels
+            must have launched, no plain version may have run on the card;
+            K4/K5's launches by points a launch are printed), then 3 steady
             prove_encoded_host calls, the last one phase-timed, and one
             under torch.profiler (the card's busy time and the kernels that
             take it); every proof must verify with public input 15 and fail
@@ -51,13 +58,19 @@ Phases, each printing one JSON line:
   bls12_381_2p20  the reference's own bench size: the bls12_381 DummyCircuit
             with a 2^20 domain set up on the device, 64 sampled points of each
             query recomputed on the host from the scalars the device built,
-            the L = 26 builds of K4/K5 and of K2/K3 (at this prove's shapes,
-            every step, and timed over the S sweep SCAN_SWEEP) against their
-            plain versions,
+            the L = 26 builds of K4/K5 (the checks and the sweep of the
+            kernels phase), of the Horner kernel and of K2/K3 (at this
+            prove's shapes, every step, and timed over the S sweep
+            SCAN_SWEEP) against their plain versions,
             then TorchProver on cuda: one prove with the counters set to 0 just
-            before and read just after (K1-K5 must launch, no plain version on
-            the card), 2 steady prove_encoded_host calls, the last one
-            phase-timed, and one under torch.profiler; every proof must verify
+            before and read just after (K1-K5 and the Horner kernels must
+            launch, no plain version on the card; K4/K5's launches by points
+            a launch are printed, and K4/K5 held against the plain version
+            at 2^17 points and at the most points of one of the prove's
+            launches), 2 steady prove_encoded_host
+            calls, the last one phase-timed, and one under torch.profiler
+            (the busy share, and the device time of each of the port's
+            kernels); every proof must verify
             with public input 15 and fail with 16.
 
 Then the `kernels` line (every kernel with its launches on each path), the
@@ -385,22 +398,31 @@ def phase_setup():
     return pk, vk, cs, rng
 
 
-def _kernel_inputs(dpk, g, n, device):
+def _key_points(dpk, g):
+    """The proving key's points the kernel checks start from (affine
+    uploads, Z = 1): the G2 query for G2, the largest G1 lane group's first
+    lane for G1."""
+    if g.k.tower_deg == 2:
+        return dpk.b_g2_tail
+    return tuple(x[..., 0, :] for x in dpk.g1_groups[-1])
+
+
+def _kernel_inputs(src, g, n, device):
     """Left (projective, Z != 1) and right (affine-uploaded) batches of n
-    points from the proving key's finite points, with the special lanes: 0 = inf + Q,
-    1 = P + P, 2 = P + (-P), 3 = P + inf.  Returns (p1, p2_full, p1m,
-    xy2_mixed) where the mixed pair replaces lanes 1-2 with affine P and
-    lane 3 with the (0, 0) infinity."""
+    points from the finite points of `src`, with the special lanes (those
+    below n): 0 = inf + Q, 1 = P + P, 2 = P + (-P), 3 = P + inf.  Returns
+    (p1, p2_full, p1m, xy2_mixed) where the mixed pair replaces lanes 1-2
+    with affine P and lane 3 with the (0, 0) infinity."""
     import torch
 
     from groth16_tpu_torch.curves import cuda_point
 
+    m = max(n, 8)
     k = g.k
     nr = getattr(k, "nr_int", None)
     plain = cuda_point._plain_ops(k.spec, nr)
-    src = dpk.b_g2_tail if k.tower_deg == 2 else tuple(x[..., 0, :] for x in dpk.g1_groups[-1])
     finite = torch.nonzero(~g.is_infinity(src)).reshape(-1)
-    idx = finite[torch.arange(n, device=device) % finite.numel()]
+    idx = finite[torch.arange(m, device=device) % finite.numel()]
     A = tuple(x[..., idx].contiguous() for x in src)  # affine uploads, Z = 1
     B = tuple(torch.roll(x, 7, dims=-1) for x in A)
     P1 = cuda_point.add_plain(plain, g.b3_val, A, B)  # projective, Z != 1
@@ -430,8 +452,7 @@ def _kernel_inputs(dpk, g, n, device):
     xy = put(xy, 1, col(A[:2], 1))
     xy = put(xy, 2, (A[0][..., 2:3], negy))
     xy = put(xy, 3, tuple(torch.zeros_like(x[..., :1]) for x in xy))
-    return tuple(x.contiguous() for x in p1), tuple(x.contiguous() for x in p2), \
-        tuple(x.contiguous() for x in p1m), tuple(x.contiguous() for x in xy)
+    return tuple(tuple(x[..., :n].contiguous() for x in pt) for pt in (p1, p2, p1m, xy))
 
 
 def phase_kernels(pk, matrices, device):
@@ -487,6 +508,8 @@ def phase_kernels(pk, matrices, device):
     # K4-K7 on bn254 G1 / G2 with the proving key's own points
     dpk = upload_proving_key(pk, matrices, device)
     entries.update(_point_kernels(dpk, c, n, device, mixed=(False, True)))
+    _add_sweep(lambda g: _key_points(dpk, g), c, device)
+    entries.update(_horner_kernels(_prove_horner_shapes(dpk), c, device))
     entries.update(_scan_kernels(dpk, c, rng, device))
     return entries
 
@@ -497,12 +520,43 @@ POINT_KERNELS = {  # name: (tag, mixed, G2, the TPU kernel)
     "add_mixed_g1": ("K6", True, False, "groth16_tpu/curves/pallas_point.py:249"),
     "add_mixed_g2": ("K7", True, True, "groth16_tpu/curves/pallas_point.py:496"),
 }
+# points a launch at which K4/K5 are held against the plain version, and
+# at which they are timed
+ADD_CHECK_N = (1, 3, 33, 4096 + 5, 1 << 16)
+ADD_SWEEP_N = (1, 4, 64, 512, 4096, 1 << 14, 1 << 15, 3 << 14, 1 << 16, 1 << 17)
+# SM clocks torch.cuda._sleep holds the card while queued_ms queues the
+# launches it times: ~20 ms at the H100's 1.98 GHz boost, far longer than
+# the host takes to queue REPS_QUEUED launches
+SPIN_CYCLES = 40_000_000
+REPS_QUEUED = 20
+
+
+def queued_ms(fn):
+    """Device time of one call of fn: REPS_QUEUED calls queued behind a
+    spin kernel, so that they run back to back without the host's launch
+    gaps, CUDA events around them; -> (ms a call, whether the host queued
+    them all before the spin ended)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    e = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    e[0].record()
+    torch.cuda._sleep(SPIN_CYCLES)
+    e[1].record()
+    t0 = time.time()
+    for _ in range(REPS_QUEUED):
+        fn()
+    host_ms = (time.time() - t0) * 1e3
+    e[2].record()
+    e[2].synchronize()
+    return e[1].elapsed_time(e[2]) / REPS_QUEUED, host_ms < e[0].elapsed_time(e[1])
 
 
 def _point_kernels(dpk, c, n, device, mixed):
-    """The point additions of curve c (full ones, and the mixed ones where
-    `mixed` holds True) against their plain version at N = n, on the
-    proving key's own points."""
+    """The point additions of curve c (the full ones, and the mixed ones
+    where `mixed` holds True) against their plain version
+    at N = n, on the proving key's own points."""
     import torch
 
     from groth16_tpu_torch.curves import codec, cuda_point
@@ -515,16 +569,17 @@ def _point_kernels(dpk, c, n, device, mixed):
         if is_mixed not in mixed:
             continue
         g, deg = (codec.g2_ops(c), 2) if g2 else (codec.g1_ops(c), 1)
-        p1, p2, p1m, xy = _kernel_inputs(dpk, g, n, device)
+        p1, p2, p1m, xy = _kernel_inputs(_key_points(dpk, g), g, n, device)
         plain_ops = cuda_point._plain_ops(g.k.spec, getattr(g.k, "nr_int", None))
+        add = g.add_affine if is_mixed else g.add
         if is_mixed:
-            run = lambda: g.add_affine(p1m, xy)  # noqa: E731
+            run = lambda: add(p1m, xy)  # noqa: E731
             run_plain = lambda: cuda_point.mixed_add_plain(plain_ops, g.b3_val, p1m, xy)  # noqa: E731
             # lanes whose affine operand is infinity pass P1 through: no work
             live = int((xy[1].reshape(-1, n) != 0).any(dim=0).sum())
             nbytes = (3 + 2 + 3) * L * deg * 4 * n
         else:
-            run = lambda: g.add(p1, p2)  # noqa: E731
+            run = lambda: add(p1, p2)  # noqa: E731
             run_plain = lambda: cuda_point.add_plain(plain_ops, g.b3_val, p1, p2)  # noqa: E731
             live = n
             nbytes = (3 + 3 + 3) * L * deg * 4 * n
@@ -543,6 +598,126 @@ def _point_kernels(dpk, c, n, device, mixed):
             "replaces": replaces, **_kline(row),
         }
     return entries
+
+
+def _check_adds(src_of, c, device, sizes):
+    """K4 and K5 on curve c held digit for digit against the plain version
+    at each of sizes["add_g1"] and sizes["add_g2"] points (the special
+    lanes where n >= 4); src_of(g): the points the inputs come from.
+    Returns `sizes`."""
+    import torch
+
+    from groth16_tpu_torch.curves import codec, cuda_point
+
+    for name, g in (("add_g1", codec.g1_ops(c)), ("add_g2", codec.g2_ops(c))):
+        plain_ops = cuda_point._plain_ops(g.k.spec, getattr(g.k, "nr_int", None))
+        src = src_of(g)
+        for n in sizes[name]:
+            p1, p2, _, _ = _kernel_inputs(src, g, n, device)
+            got, want = g.add(p1, p2), cuda_point.add_plain(plain_ops, g.b3_val, p1, p2)
+            torch.cuda.synchronize()
+            if not all(torch.equal(x, y) for x, y in zip(got, want)):
+                raise AssertionError(f"K{3 + g.k.tower_deg} on {c.name} at n = {n}: differs from the plain version")
+            if n >= 4:
+                _check_special_lanes(g, got)
+    return sizes
+
+
+def _add_sweep(src_of, c, device):
+    """K4 and K5 on curve c: checked at ADD_CHECK_N points, then timed
+    (queued_ms) at ADD_SWEEP_N points, beside the launch floor (an empty
+    kernel's time, queued and alone)."""
+    import torch
+
+    from groth16_tpu_torch.curves import codec
+    from groth16_tpu_torch.fields.spec import make_spec
+
+    checked = _check_adds(src_of, c, device, dict.fromkeys(("add_g1", "add_g2"), ADD_CHECK_N))
+    sleep0 = lambda: torch.cuda._sleep(0)  # noqa: E731
+    floor_ms, queued = queued_ms(sleep0)
+    for name, g in (("add_g1", codec.g1_ops(c)), ("add_g2", codec.g2_ops(c))):
+        src, sweep = src_of(g), {}
+        for n in ADD_SWEEP_N:
+            p1, p2, _, _ = _kernel_inputs(src, g, n, device)
+            sweep[n], ok = queued_ms(lambda: g.add(p1, p2))
+            queued &= ok
+        emit({"phase": "kernels", "kernel": f"{name} sweep", "curve": c.name,
+              "L": make_spec(c.p).n_limbs, "digit_equal_at_n": checked[name], "tolerance": 0,
+              "ms_by_n": sweep, "queued_before_spin_ended": queued,
+              "launch_floor_ms": floor_ms, "launch_floor_single_event_ms": time_ms(sleep0),
+              "card": card_line()})
+
+
+def _horner_sums(g, src, lanes, W, device):
+    """[*coords, lanes, W] projective window sums from the finite points of
+    src, with one infinity sum."""
+    import torch
+
+    from groth16_tpu_torch.curves import cuda_point
+
+    k = g.k
+    plain = cuda_point._plain_ops(k.spec, getattr(k, "nr_int", None))
+    m = lanes * W
+    finite = torch.nonzero(~g.is_infinity(src)).reshape(-1)
+    idx = finite[torch.arange(m, device=device) % finite.numel()]
+    A = tuple(x[..., idx].contiguous() for x in src)
+    pts = cuda_point.add_plain(plain, g.b3_val, A, tuple(torch.roll(x, 5, dims=-1) for x in A))
+    inf = g.infinity((1,), device=device)
+    pts = tuple(torch.cat([i, x[..., 1:]], dim=-1) for i, x in zip(inf, pts))
+    return tuple(x.reshape(x.shape[:-1] + (lanes, W)).contiguous() for x in pts)
+
+
+def _horner_kernels(shapes, c, device):
+    """The Horner entry against its plain version (the loop of additions
+    it replaces, on the card) at the MSM shapes the prove gives it:
+    shapes[name] = [(src points, lanes, n)] for horner_g1 and horner_g2,
+    each run at msm_plan's c and window count; timed (queued_ms).  The
+    kernel-line numbers are the sums over one prove's calls."""
+    import torch
+
+    from groth16_tpu_torch.curves import codec, cuda_point
+    from groth16_tpu_torch.msm.pippenger import msm_plan
+    from groth16_tpu_torch.utils.profiling import point_add_u32_ops
+
+    sbits = c.r.bit_length()
+    entries = {}
+    for name, g in (("horner_g1", codec.g1_ops(c)), ("horner_g2", codec.g2_ops(c))):
+        k = g.k
+        D, L = k.tower_deg, k.spec.n_limbs
+        nr = getattr(k, "nr_int", None)
+        plain_ops = cuda_point._plain_ops(k.spec, nr)
+        calls, err = [], 0
+        for src, lanes, n in shapes[name]:
+            plan = msm_plan(n, lanes, sbits, D * L)
+            W = plan.n_groups * plan.wg
+            sums = _horner_sums(g, src, lanes, W, device)
+            got = g.horner(sums, plan.c)
+            want, plain_ms = timed_once(lambda: cuda_point.horner_plain(plain_ops, g.b3_val, sums, plan.c))
+            torch.cuda.synchronize()
+            if not all(torch.equal(x, y) for x, y in zip(got, want)):
+                raise AssertionError(f"{name} on {c.name} (lanes {lanes}, c {plan.c}, {W} windows): kernel and plain version disagree")
+            err = max(err, max_abs_err(got, want))
+            ms, _ = queued_ms(lambda: g.horner(sums, plan.c))
+            adds = lanes * W * (plan.c + 1)
+            calls.append({"lanes": lanes, "msm_points": n, "c": plan.c, "windows": W, "adds": adds,
+                          "ms": ms, "plain_ms": plain_ms,
+                          **bound(3 * D * L * 4 * lanes * (W + 1), adds * point_add_u32_ops(L, D == 2, mixed=False))})
+        row = {"kernel": name, "curve": c.name, "tolerance": 0, "max_abs_err": err, "calls": calls,
+               **{key: sum(x[key] for x in calls) for key in ("ms", "plain_ms", "bound_ms", "bound_published_ms")},
+               "bound_by": calls[0]["bound_by"], "bound_published_by": calls[0]["bound_published_by"]}
+        emit({"phase": "kernels", **row})
+        entries[name] = {
+            "name": name, "route": "cuda", "source": "groth16_tpu_torch/csrc/point_add.cu",
+            "replaces": POINT_KERNELS[f"add_g{D}"][3], **_kline(row),
+        }
+    return entries
+
+
+def _prove_horner_shapes(dpk):
+    """(points, lanes, n) of every MSM of a prove: each G1 lane group and
+    the G2 MSM (for _horner_kernels)."""
+    g1 = [(tuple(x.reshape(x.shape[:-2] + (-1,)) for x in pts), *pts[2].shape[-2:]) for pts in dpk.g1_groups]
+    return {"horner_g1": g1, "horner_g2": [(dpk.b_g2_tail, 1, dpk.b_g2_tail[2].shape[-1])]}
 
 
 def _scan_rows(g, pts, R, npad, rng, device, fill=True):
@@ -691,6 +866,11 @@ def _scan_kernels(dpk, c, rng, device):
     return entries
 
 
+# the device name of a prove's kernel from csrc/ (the profiler's demangled
+# name: "void (anonymous namespace)::point_add_group_kernel<26, 1, 0>(...)")
+PORT_KERNEL = r"void \(anonymous namespace\)::((?:mont_mul|point_add|point_add_group|horner|suffix_scan)_kernel<[^>]*>)"
+
+
 def profile_prove(prove) -> dict:
     """Device time of one prove from a torch.profiler trace: the summed
     durations of what the card ran (one stream, so nothing overlaps) and
@@ -712,11 +892,19 @@ def profile_prove(prove) -> dict:
             by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
     busy_us = sum(us for _, us in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
+    # the port's own kernels of the prove (csrc/), every one
+    ours = {}
+    for k, (n, us) in by_name.items():
+        m = re.match(PORT_KERNEL, k)
+        if m:
+            ours[m.group(1)] = {"count": n, "ms": us / 1e3}
     return proof, {
         "profiled_wall_s": wall,
         "device_busy_s": busy_us / 1e6 if by_name else None,
         "device_launches": sum(n for n, _ in by_name.values()),
         "top_device_time": [{"name": k[:90], "count": n, "ms": us / 1e3} for k, (n, us) in top],
+        "port_kernels": ours,
+        "point_add_and_horner_ms": sum(v["ms"] for k, v in ours.items() if k.startswith(("point_add", "horner"))),
     }
 
 
@@ -766,10 +954,23 @@ def _counters():
 
 
 def zero_counts():
+    from groth16_tpu_torch.curves import cuda_point
+
     for m in _counters():
         for d in (m.LAUNCHES, m.PLAIN_CALLS):
             for k in d:
                 d[k] = 0
+    for d in (*cuda_point.LAUNCH_SIZES.values(), cuda_point.LARGEST_LAUNCH):
+        for k in d:
+            d[k] = 0
+
+
+def launch_sizes() -> dict:
+    """K4/K5 launches by points a launch, and the most points of one
+    launch, since zero_counts()."""
+    from groth16_tpu_torch.curves import cuda_point
+
+    return {k: dict(v, largest=cuda_point.LARGEST_LAUNCH[k]) for k, v in cuda_point.LAUNCH_SIZES.items()}
 
 
 def read_counts(kernels) -> dict:
@@ -786,8 +987,10 @@ def read_counts(kernels) -> dict:
     return launches
 
 
-MAIN_KERNELS = ("mont_mul", "add_g1", "add_g2", "suffix_scan_g1", "suffix_scan_g2")
-CAPTURE_KERNELS = ("mont_mul", "add_g1", "add_g2", "add_mixed_g1", "add_mixed_g2")
+MAIN_KERNELS = ("mont_mul", "add_g1", "add_g2", "horner_g1", "horner_g2", "suffix_scan_g1",
+                "suffix_scan_g2")
+CAPTURE_KERNELS = ("mont_mul", "add_g1", "add_g2", "horner_g1", "horner_g2", "add_mixed_g1",
+                   "add_mixed_g2")
 SETUP_KERNELS = ("mont_mul", "add_g1", "add_g2")
 
 
@@ -817,6 +1020,7 @@ def phase_main_path(pk, vk, cs, rng, device):
     torch.cuda.synchronize()
     first_s = time.time() - t0
     launches = read_counts(MAIN_KERNELS)
+    sizes = launch_sizes()
     first = (r, s, proofs[0])
 
     t0 = time.time()
@@ -846,7 +1050,8 @@ def phase_main_path(pk, vk, cs, rng, device):
         "phase": "main_path", "curve": CURVE, "log_n": LOG_N, "msm_scan": "fused",
         "pk_upload_s": upload_s, "first_prove_s": first_s, "assignment_encode_s": encode_s,
         "steady_prove_s": walls, "phases_s": timer.as_dict(), "profile": prof,
-        "launches_per_prove": launches, "proofs_verified": len(proofs), "wrong_input_rejected": True,
+        "launches_per_prove": launches, "add_launches_by_points": sizes,
+        "proofs_verified": len(proofs), "wrong_input_rejected": True,
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
     })
     return prover, launches, first
@@ -1006,7 +1211,9 @@ def phase_bls(device):
     # rows, steps and chunks, against their plain version
     krng = np.random.default_rng(0xB17)
     rows = {**_point_kernels(prover.dpk, c, N_KERNEL, device, mixed=(False,)),
+            **_horner_kernels(_prove_horner_shapes(prover.dpk), c, device),
             **_scan_kernels(prover.dpk, c, krng, device)}
+    _add_sweep(lambda g: _key_points(prover.dpk, g), c, device)
     rng = Rng(0xB16)
     r, s = rng.field_element(c.r), rng.field_element(c.r)
     # the proves' peak (the key stays resident), not the kernel checks'
@@ -1018,6 +1225,7 @@ def phase_bls(device):
     out["first_prove_s"] = time.time() - t0
     launches = read_counts(MAIN_KERNELS)
     out["launches_per_prove"] = launches
+    out["add_launches_by_points"] = sizes = launch_sizes()
     z_enc = prover.encode_assignment(z)
     ptimer = PhaseTimer(verbose=False, device="cuda")
     walls = []
@@ -1029,6 +1237,10 @@ def phase_bls(device):
     out["steady_prove_s"] = walls
     out["phases_s"] = ptimer.as_dict()
     out["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    # K4/K5 at 2^17 points (the G2 tail) and at the most points of one of
+    # the prove's launches (after the peak: the plain versions take more)
+    widest = {k: sorted({1 << 17, v["largest"]}) for k, v in sizes.items()}
+    out["add_digit_equal_at_n"] = _check_adds(lambda g: _key_points(prover.dpk, g), c, device, widest)
     r, s = rng.field_element(c.r), rng.field_element(c.r)
     proof, prof = profile_prove(lambda: prover.prove_encoded_host(z_enc, r, s))
     proofs.append(proof)
@@ -1099,10 +1311,10 @@ def main() -> int:
                    "setup": setup.get(name, 0), "bls12_381_2p20": bls.get(name, 0)}
         if name in bls_rows:
             e = dict(e, bls12_381={k: v for k, v in bls_rows[name].items() if k not in e or e[k] != v})
-        if name in MAIN_KERNELS:
-            kernels.append(dict(e, launches=launches[name], path="main", launches_by_path=by_path))
-        else:  # K6/K7 run on the capture-scan path only
-            kernels.append(dict(e, launches=capture[name], path="capture", launches_by_path=by_path))
+        # the main path's launches, else those of the first path that ran it
+        # (K6/K7: the capture scan)
+        path = next((p for p, n in by_path.items() if n), "main")
+        kernels.append(dict(e, launches=by_path[path], path=path, launches_by_path=by_path))
     kernels += list(ubench_entries.values())
     emit({"kernels": kernels})
     print(card_line(), flush=True)

@@ -79,10 +79,14 @@ __device__ __forceinline__ uint32_t rex(uint32_t (&x)[L]) {
 
 // fp.mont_mul / pallas_fp.cios: inputs any digit class with value < 8p,
 // output exact digits < 2p.  The columns of acc stay < 2^23 (fp.py ledger).
-// Both loops are unrolled, so every register index is static.
+// Both loops are unrolled, so every register index is static.  Always
+// inlined: the cooperative point additions (point_add.cu) call it from one
+// site per kernel; `mont_mul` below is the form the one-thread formulas
+// call (out of line under G16_OUTLINE_MUL).
 template <int L>
-__device__ G16_MUL_ATTR void mont_mul(const uint32_t (&a_in)[L], const uint32_t (&b_in)[L],
-                                      uint32_t (&out)[L], const Consts<L>& k) {
+__device__ __forceinline__ void mont_mul_inline(const uint32_t (&a_in)[L],
+                                                const uint32_t (&b_in)[L], uint32_t (&out)[L],
+                                                const Consts<L>& k) {
   uint32_t a[L], b[L], acc[L + 1];
 #pragma unroll
   for (int j = 0; j < L; j++) {
@@ -118,6 +122,12 @@ __device__ G16_MUL_ATTR void mont_mul(const uint32_t (&a_in)[L], const uint32_t 
 #pragma unroll
   for (int j = 0; j < L; j++) out[j] = acc[j];
   rex<L>(out);
+}
+
+template <int L>
+__device__ G16_MUL_ATTR void mont_mul(const uint32_t (&a_in)[L], const uint32_t (&b_in)[L],
+                                      uint32_t (&out)[L], const Consts<L>& k) {
+  mont_mul_inline<L>(a_in, b_in, out, k);
 }
 
 // fp.sub(a, b, k): a - b + k*p with exact digits; b any digit class

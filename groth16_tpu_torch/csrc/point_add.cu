@@ -5,7 +5,7 @@
 //   rcb_add_mixed<F>  K6 (G1) replaces add_mixed_g1_pallas (_add_mixed_kernel
 //                     -> mixed_add_g1_math); K7 (G2) replaces
 //                     add_mixed_g2_pallas (_add_mixed_g2_kernel).
-// Each library holds one kernel, so the four build in parallel:
+// Each library holds one formula, so the four build in parallel:
 // -DG16_LIMBS=L (digits of Fq), -DG16_D=1 (G1, Fq) or 2 (G2, Fq2),
 // -DG16_MIXED=0 (rcb_add) or 1 (rcb_add_mixed), -DG16_NR=nr (the Fq2
 // nonresidue; unused for G1).  The library's name says which
@@ -15,10 +15,34 @@
 // (mixed: 13) Montgomery products of 2 L^2 + L multiply-adds each (x4 over
 // Fp2): 7,992 (8,658) at L = 18, against 9 (mixed: 8) coordinates of 4 L
 // bytes (x2 over Fp2) of traffic, 12-15 multiply-adds per byte against the
-// card's ~5 (64 per SM per clock on 132 SMs against 3.35 TB/s).
-// Design: one thread per point, the whole formula in registers (the G2
-// kernels hold more live digits than a thread has registers and spill; the
-// ptxas report is in PERF.md).  Nothing more yet.
+// card's ~5 (64 per SM per clock on 132 SMs against 3.35 TB/s).  For the
+// few points most launches of a prove carry, the bound is microseconds and
+// what costs is the latency of one addition.
+//
+// The full addition (K4, K5) runs on a group of lanes, and so does the
+// MSM's Horner chain; the mixed addition (K6, K7) on one thread:
+//   point_add_group_kernel a group of lanes per point (6 for G1, 5 groups a
+//                          warp; 24 for G2, one a warp): each of the
+//                          formula's three product stages (6, 2 and 6
+//                          products, x4 Fq products over Fp2) runs one
+//                          product a lane, its operands and results in
+//                          shared memory; the pre-adds, the Fp2
+//                          combinations, the subtractions and the final
+//                          reductions run one element a lane between them.
+//                          The chain of a point falls from 12 (G1) or 48
+//                          (G2) sequential products to 3, and a lane holds
+//                          one product's digits, so nothing spills.
+//   horner_kernel          res = sum_w 2^(c w) S_w for every lane of one MSM
+//                          in one launch: per window from the top c
+//                          doublings add(P, P) and one add of S_w, each the
+//                          group body, the running point in shared memory.
+//   point_add_kernel       K6/K7, one thread per point, the whole formula
+//                          in registers (the G2 kernel holds more live
+//                          digits than a thread has registers and spills;
+//                          PERF.md).
+// Every element goes through the same mont_mul, sub, sub_exact, cond_sub and
+// reduce_to_2p of field.cuh in the same order as rcb_add (point.cuh), so the
+// digits are the plain version's (curves/cuda_point.py).
 
 #include <cuda_runtime.h>
 
@@ -33,14 +57,13 @@ namespace {
 using g16::Consts;
 using g16::Fe;
 
-template <int L, int D, int NR, bool MIXED>
+template <int L, int D, int NR>
 __global__ void __launch_bounds__(128)
     point_add_kernel(const uint32_t* __restrict__ x1, const uint32_t* __restrict__ y1,
                      const uint32_t* __restrict__ z1, const uint32_t* __restrict__ x2,
-                     const uint32_t* __restrict__ y2, const uint32_t* __restrict__ z2,
-                     uint32_t* __restrict__ x3, uint32_t* __restrict__ y3,
-                     uint32_t* __restrict__ z3, long long n, const uint32_t* __restrict__ consts,
-                     uint32_t n0) {
+                     const uint32_t* __restrict__ y2, uint32_t* __restrict__ x3,
+                     uint32_t* __restrict__ y3, uint32_t* __restrict__ z3, long long n,
+                     const uint32_t* __restrict__ consts, uint32_t n0) {
   long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   Consts<L> k{consts, n0};
@@ -48,30 +71,353 @@ __global__ void __launch_bounds__(128)
            Z1 = g16::load<L, D>(z1, i, n), X2 = g16::load<L, D>(x2, i, n),
            Y2 = g16::load<L, D>(y2, i, n);
   Fe<L, D> X3, Y3, Z3;
-  if constexpr (MIXED) {
-    g16::rcb_add_mixed<L, D, NR>(X1, Y1, Z1, X2, Y2, X3, Y3, Z3, k);
-  } else {
-    Fe<L, D> Z2 = g16::load<L, D>(z2, i, n);
-    g16::rcb_add<L, D, NR>(X1, Y1, Z1, X2, Y2, Z2, X3, Y3, Z3, k);
-  }
+  g16::rcb_add_mixed<L, D, NR>(X1, Y1, Z1, X2, Y2, X3, Y3, Z3, k);
   g16::store<L, D>(x3, i, n, X3);
   g16::store<L, D>(y3, i, n, Y3);
   g16::store<L, D>(z3, i, n, Z3);
 }
 
+// -- the group form --------------------------------------------------------------
+
+constexpr int kGroupWarps = 4;  // warps a block
+
+// A point's shared words: SLOTS elements of D components, each component L
+// digits at an odd stride (lanes that read neighbouring components hit
+// distinct banks), then, over Fp2, the 24 raw Fq products of a stage.
+template <int L, int D>
+struct Group {
+  static constexpr int LP = L | 1;
+  static constexpr int E = D * LP;          // words an element
+  static constexpr int SLOTS = 19;
+  static constexpr int LANES = 6 * D * D;   // lanes a point
+  static constexpr int PER_WARP = 32 / LANES;
+  static constexpr int WORDS = SLOTS * E + (D == 2 ? 24 * LP : 0);
+};
+
+// Slots.  The inputs and the pre-adds are dead after the first product
+// stage, so the later values reuse them; X3, Y3, Z3 end in slots 0-2, where
+// the next addition of a chain reads P1.
+enum : int {
+  X1 = 0, Y1 = 1, Z1 = 2, X2 = 3, Y2 = 4, Z2 = 5,
+  PRE = 6,                                       // 6-11: X1+Y1, X2+Y2, Y1+Z1, Y2+Z2, X1+Z1, X2+Z2
+  T0 = 12, T1 = 13, T2 = 14, M3 = 15, M4 = 16, M5 = 17,
+  B3 = 18,
+  T3 = 0, T4 = 1, T5 = 2, T0T = 3, T2B = 4, T5B = 5, Z3S = 6, T1M = 7,
+  W0 = 8,                                        // 8-13: w0..w5
+};
+
+// Six 5-bit slot numbers in one word, picked by a lane's product index.
+__host__ __device__ constexpr unsigned long long slots6(int a, int b, int c, int d, int e, int f) {
+  return (unsigned long long)a | (unsigned long long)b << 5 | (unsigned long long)c << 10 |
+         (unsigned long long)d << 15 | (unsigned long long)e << 20 |
+         (unsigned long long)f << 25;
+}
+__device__ __forceinline__ int pick(unsigned long long t, int i) {
+  return (int)((t >> (5 * i)) & 31);
+}
+
+template <int L>
+__device__ __forceinline__ void ld(uint32_t (&x)[L], const uint32_t* s) {
+#pragma unroll
+  for (int j = 0; j < L; j++) x[j] = s[j];
+}
+
+template <int L>
+__device__ __forceinline__ void st(uint32_t* s, const uint32_t (&x)[L]) {
+#pragma unroll
+  for (int j = 0; j < L; j++) s[j] = x[j];
+}
+
+// rcb_add (point.cuh) on one point's shared words s, by its group of lanes:
+// t is the lane's index in the group, -1 on a lane without a point.  Every
+// lane of the warp calls it (it synchronises the warp).  Inputs in slots
+// X1..Z2 and b3 in B3; (X3, Y3, Z3) out in slots 0-2.
+template <int L, int D, int NR>
+__device__ __forceinline__ void group_add(uint32_t* s, int t, const Consts<L>& k) {
+  using G = Group<L, D>;
+  constexpr int E = G::E, LP = G::LP, DD = D * D;
+  // pre-adds (lazy), one component a lane
+  if (t >= 0 && t < 6 * D) {
+    const int e = t / D, c = t % D;
+    const int a = pick(slots6(X1, X2, Y1, Y2, X1, X2), e);
+    const int b = pick(slots6(Y1, Y2, Z1, Z2, Z1, Z2), e);
+#pragma unroll
+    for (int j = 0; j < L; j++)
+      s[(PRE + e) * E + c * LP + j] = s[a * E + c * LP + j] + s[b * E + c * LP + j];
+  }
+  __syncwarp();
+#pragma unroll 1
+  for (int stage = 0; stage < 3; stage++) {
+    // products: t0 t1 t2 m3 m4 m5 | t2b t5b | w0..w5
+    const int nq = stage == 1 ? 2 : 6;
+    const unsigned long long ta = stage == 0   ? slots6(X1, Y1, Z1, PRE, PRE + 2, PRE + 4)
+                                  : stage == 1 ? slots6(T2, T5, 0, 0, 0, 0)
+                                               : slots6(T4, T3, T5B, T1M, T0T, Z3S);
+    const unsigned long long tb = stage == 0   ? slots6(X2, Y2, Z2, PRE + 1, PRE + 3, PRE + 5)
+                                  : stage == 1 ? slots6(B3, B3, 0, 0, 0, 0)
+                                               : slots6(T5B, T1M, T0T, Z3S, T3, T4);
+    const unsigned long long to = stage == 0   ? slots6(T0, T1, T2, M3, M4, M5)
+                                  : stage == 1 ? slots6(T2B, T5B, 0, 0, 0, 0)
+                                               : slots6(W0, W0 + 1, W0 + 2, W0 + 3, W0 + 4, W0 + 5);
+    if (t >= 0 && t < nq * DD) {
+      // Fp2: Fq product m of Fp2 product q in Fp2Ops.mul_many's order
+      // a0 b0, a1 b1, a0 b1, a1 b0
+      const int q = t / DD, m = t % DD;
+      const int ca = (m == 1 || m == 3), cb = (m == 1 || m == 2);
+      uint32_t a[L], b[L], r[L];
+      ld<L>(a, s + pick(ta, q) * E + ca * LP);
+      ld<L>(b, s + pick(tb, q) * E + cb * LP);
+      g16::mont_mul_inline<L>(a, b, r, k);
+      st<L>(D == 1 ? s + pick(to, q) * E : s + G::SLOTS * E + t * LP, r);
+    }
+    __syncwarp();
+    if constexpr (D == 2) {
+      // fmul's combination: c0 = v00 + NR v11 to [0, 2p), c1 = v01 + v10
+      constexpr int ANR = NR < 0 ? -NR : NR;
+      constexpr int BOUND = 2 + 2 * ANR;
+      if (t >= 0 && t < nq * 2) {
+        const int q = t / 2;
+        const uint32_t* raw = s + G::SLOTS * E + q * 4 * LP;
+        uint32_t u[L], v[L], r[L];
+        if (t % 2 == 0) {
+          ld<L>(u, raw);
+          ld<L>(v, raw + LP);
+#pragma unroll
+          for (int j = 0; j < L; j++) v[j] *= ANR;
+          if constexpr (NR < 0) {
+            g16::sub<L>(u, v, 2 * ANR, r, k);
+          } else {
+#pragma unroll
+            for (int j = 0; j < L; j++) r[j] = u[j] + v[j];
+          }
+          g16::reduce_to_2p<L, (BOUND > 4 ? BOUND : 4)>(r, k);
+        } else {
+          ld<L>(u, raw + 2 * LP);
+          ld<L>(v, raw + 3 * LP);
+#pragma unroll
+          for (int j = 0; j < L; j++) r[j] = u[j] + v[j];
+          g16::cond_sub<L>(r, 2, k);
+        }
+        st<L>(s + pick(to, q) * E + (t % 2) * LP, r);
+      }
+      __syncwarp();
+    }
+    // the element work after each stage, one component a lane
+    const int ne = stage == 0 ? 4 : stage == 1 ? 2 : 3;
+    if (t >= 0 && t < ne * D) {
+      const int e = t / D, c = t % D;
+      const int off = c * LP;
+      uint32_t a[L], b[L], r[L];
+      if (stage == 0) {
+        if (e < 3) {
+          // t3 = m3 - (t0 + t1), t4 = m4 - (t1 + t2), t5 = m5 - (t0 + t2), + 4p
+          const int b1 = e == 1 ? T1 : T0, b2 = e == 0 ? T1 : T2;
+          ld<L>(a, s + (M3 + e) * E + off);
+#pragma unroll
+          for (int j = 0; j < L; j++) b[j] = s[b1 * E + off + j] + s[b2 * E + off + j];
+          g16::sub<L>(a, b, 4, r, k);
+        } else {  // t0t = 3 t0 (lazy)
+          ld<L>(a, s + T0 * E + off);
+#pragma unroll
+          for (int j = 0; j < L; j++) r[j] = a[j] + a[j] + a[j];
+        }
+        st<L>(s + (T3 + e) * E + off, r);  // T3, T4, T5, T0T
+      } else if (stage == 1) {
+        ld<L>(a, s + T1 * E + off);
+        ld<L>(b, s + T2B * E + off);
+        if (e == 0) {  // Z3s = t1 + t2b (lazy)
+#pragma unroll
+          for (int j = 0; j < L; j++) r[j] = a[j] + b[j];
+        } else {  // t1m = t1 - t2b + 2p
+          g16::sub_exact<L>(a, b, 2, r, k);
+        }
+        st<L>(s + (Z3S + e) * E + off, r);  // Z3S, T1M
+      } else {
+        // X3 = w1 - w0 + 2p, Y3 = w3 + w2, Z3 = w5 + w4, each to [0, 2p)
+        ld<L>(a, s + (W0 + 2 * e + 1) * E + off);
+        ld<L>(b, s + (W0 + 2 * e) * E + off);
+        if (e == 0) {
+          g16::sub_exact<L>(a, b, 2, r, k);
+        } else {
+#pragma unroll
+          for (int j = 0; j < L; j++) r[j] = a[j] + b[j];
+        }
+        g16::cond_sub<L>(r, 2, k);
+        st<L>(s + e * E + off, r);  // X3, Y3, Z3 in slots 0-2
+      }
+    }
+    __syncwarp();
+  }
+}
+
+// Element slot of s <- digit (j, c) of point idx at src[(j D + c) stride +
+// idx] (the wrappers' limb-major planes), words t, t + LANES, ...
+template <int L, int D>
+__device__ __forceinline__ void load_elem(uint32_t* s, const uint32_t* __restrict__ src,
+                                          long long stride, long long idx, int t) {
+  using G = Group<L, D>;
+  for (int w = t; w < D * L; w += G::LANES)
+    s[(w % D) * G::LP + w / D] = __ldg(src + w * stride + idx);
+}
+
+template <int L, int D>
+__device__ __forceinline__ void store_elem(uint32_t* __restrict__ dst, long long stride,
+                                           long long idx, const uint32_t* s, int t) {
+  using G = Group<L, D>;
+  for (int w = t; w < D * L; w += G::LANES) dst[w * stride + idx] = s[(w % D) * G::LP + w / D];
+}
+
+// b3 into slot B3 (the constant table's rows c0, c1)
+template <int L, int D>
+__device__ __forceinline__ void load_b3(uint32_t* s, int t, const Consts<L>& k) {
+  using G = Group<L, D>;
+  for (int w = t; w < D * L; w += G::LANES)
+    s[B3 * G::E + (w % D) * G::LP + w / D] = k.b3(w % D, w / D);
+}
+
+// The warp's points start at `first`; the lane's point is first + its group.
+// Returns the lane's index in its group (-1 without a point) and its words.
+template <int L, int D>
+__device__ __forceinline__ int group_lane(uint32_t* smem, long long first, long long n,
+                                          uint32_t*& s) {
+  using G = Group<L, D>;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, gp = lane / G::LANES;
+  const bool live = gp < G::PER_WARP && first + gp < n;
+  s = smem + (warp * G::PER_WARP + (gp < G::PER_WARP ? gp : 0)) * G::WORDS;
+  return live ? lane % G::LANES : -1;
+}
+
+template <int L, int D, int NR>
+__global__ void __launch_bounds__(32 * kGroupWarps, 4)
+    point_add_group_kernel(const uint32_t* __restrict__ x1, const uint32_t* __restrict__ y1,
+                           const uint32_t* __restrict__ z1, const uint32_t* __restrict__ x2,
+                           const uint32_t* __restrict__ y2, const uint32_t* __restrict__ z2,
+                           uint32_t* __restrict__ x3, uint32_t* __restrict__ y3,
+                           uint32_t* __restrict__ z3, long long n,
+                           const uint32_t* __restrict__ consts, uint32_t n0) {
+  using G = Group<L, D>;
+  __shared__ uint32_t smem[kGroupWarps * G::PER_WARP * G::WORDS];
+  const long long first =
+      ((long long)blockIdx.x * kGroupWarps + threadIdx.x / 32) * G::PER_WARP;
+  if (first >= n) return;  // the whole warp
+  uint32_t* s;
+  const int t = group_lane<L, D>(smem, first, n, s);
+  const long long i = first + (threadIdx.x % 32) / G::LANES;
+  Consts<L> k{consts, n0};
+  if (t >= 0) {
+    load_elem<L, D>(s + X1 * G::E, x1, n, i, t);
+    load_elem<L, D>(s + Y1 * G::E, y1, n, i, t);
+    load_elem<L, D>(s + Z1 * G::E, z1, n, i, t);
+    load_elem<L, D>(s + X2 * G::E, x2, n, i, t);
+    load_elem<L, D>(s + Y2 * G::E, y2, n, i, t);
+    load_elem<L, D>(s + Z2 * G::E, z2, n, i, t);
+    load_b3<L, D>(s, t, k);
+  }
+  __syncwarp();
+  group_add<L, D, NR>(s, t, k);
+  if (t >= 0) {
+    store_elem<L, D>(x3, n, i, s + 0 * G::E, t);
+    store_elem<L, D>(y3, n, i, s + 1 * G::E, t);
+    store_elem<L, D>(z3, n, i, s + 2 * G::E, t);
+  }
+}
+
+// res[l] = sum_w 2^(c w) sums[l, w] from res = (0 : 1 : 0): for each
+// window from the top, c doublings add(P, P), then add(P, sums[l, w]);
+// sums planes [*coords, lanes, windows], res planes [*coords, lanes].
+template <int L, int D, int NR>
+__global__ void __launch_bounds__(32 * kGroupWarps, 4)
+    horner_kernel(const uint32_t* __restrict__ sx, const uint32_t* __restrict__ sy,
+                  const uint32_t* __restrict__ sz, uint32_t* __restrict__ rx,
+                  uint32_t* __restrict__ ry, uint32_t* __restrict__ rz, long long lanes,
+                  int windows, int c, const uint32_t* __restrict__ consts, uint32_t n0) {
+  using G = Group<L, D>;
+  __shared__ uint32_t smem[kGroupWarps * G::PER_WARP * G::WORDS];
+  const long long first =
+      ((long long)blockIdx.x * kGroupWarps + threadIdx.x / 32) * G::PER_WARP;
+  if (first >= lanes) return;
+  uint32_t* s;
+  const int t = group_lane<L, D>(smem, first, lanes, s);
+  const long long l = first + (threadIdx.x % 32) / G::LANES;
+  Consts<L> k{consts, n0};
+  if (t >= 0) {
+    for (int w = t; w < D * L; w += G::LANES) {
+      const int j = w / D, cc = w % D, o = cc * G::LP + j;
+      s[X1 * G::E + o] = 0;
+      s[Y1 * G::E + o] = cc == 0 ? k.one(j) : 0;
+      s[Z1 * G::E + o] = 0;
+    }
+    load_b3<L, D>(s, t, k);
+  }
+  __syncwarp();
+  const long long stride = lanes * windows;
+#pragma unroll 1
+  for (int w = windows - 1; w >= 0; w--) {
+#pragma unroll 1
+    for (int d = 0; d <= c; d++) {
+      if (t >= 0) {
+        if (d < c) {  // P2 = P
+          for (int x = t; x < 3 * G::E; x += G::LANES) s[X2 * G::E + x] = s[X1 * G::E + x];
+        } else {  // P2 = sums[l, w]
+          load_elem<L, D>(s + X2 * G::E, sx, stride, l * windows + w, t);
+          load_elem<L, D>(s + Y2 * G::E, sy, stride, l * windows + w, t);
+          load_elem<L, D>(s + Z2 * G::E, sz, stride, l * windows + w, t);
+        }
+      }
+      __syncwarp();
+      group_add<L, D, NR>(s, t, k);
+    }
+  }
+  if (t >= 0) {
+    store_elem<L, D>(rx, lanes, l, s + 0 * G::E, t);
+    store_elem<L, D>(ry, lanes, l, s + 1 * G::E, t);
+    store_elem<L, D>(rz, lanes, l, s + 2 * G::E, t);
+  }
+}
+
 }  // namespace
 
-// (x1, y1, z1) + (x2, y2, z2), or, in a G16_MIXED = 1 build, (x1, y1, z1) +
-// affine (x2, y2) with z2 unused.  Returns 0 or the CUDA error of the launch.
+#if G16_MIXED
+// (x1, y1, z1) + affine (x2, y2), one thread a point (K6, K7).  Returns 0
+// or the CUDA error of the launch.
 extern "C" int g16_point_add(const void* x1, const void* y1, const void* z1, const void* x2,
-                             const void* y2, const void* z2, void* x3, void* y3, void* z3,
-                             long long n, const void* consts, unsigned n0, void* stream) {
+                             const void* y2, void* x3, void* y3, void* z3, long long n,
+                             const void* consts, unsigned n0, void* stream) {
   const int threads = 128;
   long long blocks = (n + threads - 1) / threads;
-  point_add_kernel<G16_LIMBS, G16_D, G16_NR, G16_MIXED != 0>
+  point_add_kernel<G16_LIMBS, G16_D, G16_NR>
       <<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
+          (const uint32_t*)x1, (const uint32_t*)y1, (const uint32_t*)z1, (const uint32_t*)x2,
+          (const uint32_t*)y2, (uint32_t*)x3, (uint32_t*)y3, (uint32_t*)z3, n,
+          (const uint32_t*)consts, n0);
+  return (int)cudaGetLastError();
+}
+#else
+// The full addition in the group form (K4, K5).
+extern "C" int g16_point_add_group(const void* x1, const void* y1, const void* z1,
+                                   const void* x2, const void* y2, const void* z2, void* x3,
+                                   void* y3, void* z3, long long n, const void* consts,
+                                   unsigned n0, void* stream) {
+  constexpr int per_block = kGroupWarps * Group<G16_LIMBS, G16_D>::PER_WARP;
+  long long blocks = (n + per_block - 1) / per_block;
+  point_add_group_kernel<G16_LIMBS, G16_D, G16_NR>
+      <<<(unsigned)blocks, 32 * kGroupWarps, 0, (cudaStream_t)stream>>>(
           (const uint32_t*)x1, (const uint32_t*)y1, (const uint32_t*)z1, (const uint32_t*)x2,
           (const uint32_t*)y2, (const uint32_t*)z2, (uint32_t*)x3, (uint32_t*)y3, (uint32_t*)z3,
           n, (const uint32_t*)consts, n0);
   return (int)cudaGetLastError();
 }
+
+// Horner over `windows` window sums of `lanes` MSMs with c-bit windows.
+extern "C" int g16_horner(const void* sx, const void* sy, const void* sz, void* rx, void* ry,
+                          void* rz, long long lanes, int windows, int c, const void* consts,
+                          unsigned n0, void* stream) {
+  constexpr int per_block = kGroupWarps * Group<G16_LIMBS, G16_D>::PER_WARP;
+  long long blocks = (lanes + per_block - 1) / per_block;
+  horner_kernel<G16_LIMBS, G16_D, G16_NR><<<(unsigned)blocks, 32 * kGroupWarps, 0,
+                                            (cudaStream_t)stream>>>(
+      (const uint32_t*)sx, (const uint32_t*)sy, (const uint32_t*)sz, (uint32_t*)rx,
+      (uint32_t*)ry, (uint32_t*)rz, lanes, windows, c, (const uint32_t*)consts, n0);
+  return (int)cudaGetLastError();
+}
+#endif

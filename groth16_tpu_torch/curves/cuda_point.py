@@ -1,4 +1,5 @@
-"""CUDA kernels K4-K7 — complete point additions — and their plain versions.
+"""CUDA kernels K4-K7 — complete point additions — the MSM's Horner
+chain, and their plain versions.
 
 Counterpart of `groth16_tpu/curves/pallas_point.py`:
 
@@ -6,18 +7,27 @@ Counterpart of `groth16_tpu/curves/pallas_point.py`:
   add_g2        K5  replaces pallas_point.add_g2_pallas
   add_mixed_g1  K6  replaces pallas_point.add_mixed_g1_pallas
   add_mixed_g2  K7  replaces pallas_point.add_mixed_g2_pallas
+  horner_g1/g2  the Horner chain of `msm/pippenger.py` (a Python loop of
+                K4/K5 launches before; the JAX package's `fori_loop` of
+                `CurveDevice.add` at groth16_tpu/msm/pippenger.py:660)
 
 One CUDA kernel body per formula (csrc/point_add.cu: rcb_add<F>,
-rcb_add_mixed<F>) templated on the coordinate field, one thread per
-point.  Coordinates are limb-major `int32[L, N]` (G1) or `int32[L, 2, N]`
-(G2), < 2p with exact digits in and out.
+rcb_add_mixed<F>) templated on the coordinate field.  The full addition
+(K4/K5) and the Horner chain run on a group of lanes per point (6 for G1,
+24 for G2), each of the formula's three product stages one product a
+lane: most launches of a prove carry a few points, where one addition's
+latency is the launch's time.  The mixed additions (K6/K7) run one
+thread per point.
+Coordinates are limb-major `int32[L, N]` (G1) or `int32[L, 2, N]` (G2),
+< 2p with exact digits in and out.
 
 Plain versions, beside each wrapper: K4/K5 run the stacked RCB path of
 `groth16_tpu/curves/point.py:CurveDevice.add`; K6/K7 transcribe
-`pallas_point.mixed_add_g1_math` and its Fp2 form.  Their multiplies run
-the plain version of K1, so they are plain PyTorch on any device.  The
-kernels repeat the same operations in the same order and return the
-same digits.
+`pallas_point.mixed_add_g1_math` and its Fp2 form; Horner is the loop of
+`msm/pippenger.py` over the plain K4/K5.  Their multiplies run the plain
+version of K1, so they are plain PyTorch on any device.  The kernels
+repeat the same operations in the same order and return the same
+digits.
 
 Each wrapper dispatches by device only: CPU tensors run the plain
 version, CUDA tensors launch the kernel or raise.
@@ -34,10 +44,22 @@ from groth16_tpu_torch.fields.cuda_fp import KERNEL_LIMBS, check_operand, kernel
 from groth16_tpu_torch.fields.ops import Fp2Ops, FpOps
 from groth16_tpu_torch.fields.spec import FpSpec
 
-# launches per kernel, counted where the kernel is launched and nowhere else
-LAUNCHES = {"add_g1": 0, "add_g2": 0, "add_mixed_g1": 0, "add_mixed_g2": 0}
+# launches per kernel, counted where the kernel is launched and nowhere
+# else
+LAUNCHES = {
+    "add_g1": 0, "add_g2": 0, "horner_g1": 0, "horner_g2": 0, "add_mixed_g1": 0, "add_mixed_g2": 0,
+}
 # calls of the plain versions on CUDA tensors (the main path makes none)
-PLAIN_CALLS = {"add_g1": 0, "add_g2": 0, "add_mixed_g1": 0, "add_mixed_g2": 0}
+PLAIN_CALLS = dict.fromkeys(LAUNCHES, 0)
+# the full additions' launches by points a launch, and the most points of
+# one launch
+SIZE_CLASSES = ("1-4", "5-4096", ">4096")
+LAUNCH_SIZES = {name: dict.fromkeys(SIZE_CLASSES, 0) for name in ("add_g1", "add_g2")}
+LARGEST_LAUNCH = dict.fromkeys(LAUNCH_SIZES, 0)
+
+
+def size_class(n: int) -> str:
+    return SIZE_CLASSES[0] if n <= 4 else SIZE_CLASSES[1] if n <= 4096 else SIZE_CLASSES[2]
 
 
 @functools.lru_cache(maxsize=None)
@@ -51,8 +73,17 @@ def _lib(n_limbs: int, deg: int, mixed: bool, nr: int):
     lib = library(point_add_variant(n_limbs, deg, mixed, nr))
     if not getattr(lib, "_g16_typed", False):
         P = ctypes.c_void_p
-        lib.g16_point_add.argtypes = [P] * 9 + [ctypes.c_longlong, P, ctypes.c_uint, P]
-        lib.g16_point_add.restype = ctypes.c_int
+        tail = [ctypes.c_longlong, P, ctypes.c_uint, P]
+        if mixed:
+            lib.g16_point_add.argtypes = [P] * 8 + tail
+            lib.g16_point_add.restype = ctypes.c_int
+        else:
+            lib.g16_point_add_group.argtypes = [P] * 9 + tail
+            lib.g16_point_add_group.restype = ctypes.c_int
+            lib.g16_horner.argtypes = [P] * 6 + [
+                ctypes.c_longlong, ctypes.c_int, ctypes.c_int, P, ctypes.c_uint, P
+            ]
+            lib.g16_horner.restype = ctypes.c_int
         lib._g16_typed = True
     return lib
 
@@ -64,15 +95,21 @@ def _device(name, tensors) -> torch.device:
     return devs.pop()
 
 
-def _launch(name, mixed, spec, nr, b3_val, p1, p2):
-    """Launch one point-add kernel on CUDA coordinates; nr is None for
-    G1 (Fq coordinates), the Fq2 nonresidue for G2."""
+def _check_kernel(name, spec, nr):
+    """(L, D) of a kernel call; raises for a field no kernel is built for."""
     L = spec.n_limbs
     D = 1 if nr is None else 2
     if L not in KERNEL_LIMBS:
         raise ValueError(f"{name}: no kernel for L = {L} (have {KERNEL_LIMBS})")
     if D == 2 and not 1 <= abs(nr) <= 16:
         raise ValueError(f"{name}: no kernel for Fq2 nonresidue {nr}")
+    return L, D
+
+
+def _launch(name, mixed, spec, nr, b3_val, p1, p2):
+    """Launch one point-add kernel on CUDA coordinates; nr is None for
+    G1 (Fq coordinates), the Fq2 nonresidue for G2."""
+    L, D = _check_kernel(name, spec, nr)
     lead = (L,) if D == 1 else (L, 2)
     n = max(x.shape[-1] for x in p1 + p2)
     ins = [check_operand(x, lead, n, f"{name} input {i}") for i, x in enumerate(p1 + p2)]
@@ -80,17 +117,19 @@ def _launch(name, mixed, spec, nr, b3_val, p1, p2):
     outs = [torch.empty(lead + (n,), dtype=torch.int32, device=dev) for _ in range(3)]
     if n == 0:
         return tuple(outs)
-    ptrs = [x.data_ptr() for x in ins]
-    if mixed:
-        ptrs.append(0)  # no Z2 plane
+    lib = _lib(L, D, mixed, 0 if nr is None else nr)
+    fn = lib.g16_point_add if mixed else lib.g16_point_add_group
     consts = kernel_consts(spec, b3_val, dev)
-    rc = _lib(L, D, mixed, 0 if nr is None else nr).g16_point_add(
-        *ptrs, *[o.data_ptr() for o in outs], n, consts.data_ptr(), spec.n0inv,
-        torch.cuda.current_stream(dev).cuda_stream,
+    rc = fn(
+        *[x.data_ptr() for x in ins], *[o.data_ptr() for o in outs], n, consts.data_ptr(),
+        spec.n0inv, torch.cuda.current_stream(dev).cuda_stream,
     )
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
     LAUNCHES[name] += 1
+    if not mixed:
+        LAUNCH_SIZES[name][size_class(n)] += 1
+        LARGEST_LAUNCH[name] = max(LARGEST_LAUNCH[name], n)
     return tuple(outs)
 
 
@@ -123,6 +162,49 @@ def add_mixed_g1(spec: FpSpec, b3_val: int, p1, xy2):
 def add_mixed_g2(spec: FpSpec, nr: int, b3_val, p1, xy2):
     """K7: K6 over Fq2 on [L, 2, N] coordinates."""
     return _dispatch("add_mixed_g2", True, spec, nr, b3_val, p1, xy2)
+
+
+def _horner(name, spec, nr, b3_val, sums, c: int):
+    dev = _device(name, sums)
+    if dev.type == "cpu":
+        return horner_plain(_plain_ops(spec, nr), b3_val, sums, c)
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {dev}")
+    L, D = _check_kernel(name, spec, nr)
+    lead = (L,) if D == 1 else (L, 2)
+    lanes, W = sums[0].shape[-2:]
+    for i, x in enumerate(sums):
+        if x.dtype != torch.int32:
+            raise TypeError(f"{name} input {i}: expected int32 digits, got {x.dtype}")
+        if tuple(x.shape) != lead + (lanes, W) or not x.is_contiguous():
+            raise ValueError(
+                f"{name} input {i}: expected contiguous {lead + (lanes, W)}, got {tuple(x.shape)}"
+            )
+    if c < 1 or W < 1:
+        raise ValueError(f"{name}: needs c >= 1 and a window, got c = {c}, {W} windows")
+    outs = [torch.empty(lead + (lanes,), dtype=torch.int32, device=dev) for _ in range(3)]
+    if lanes == 0:
+        return tuple(outs)
+    consts = kernel_consts(spec, b3_val, dev)
+    rc = _lib(L, D, False, 0 if nr is None else nr).g16_horner(
+        *[x.data_ptr() for x in sums], *[o.data_ptr() for o in outs], lanes, W, c,
+        consts.data_ptr(), spec.n0inv, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+    LAUNCHES[name] += 1
+    return tuple(outs)
+
+
+def horner_g1(spec: FpSpec, b3_val: int, sums, c: int):
+    """sum_w 2^(c w) sums[.., w] for each lane: window sums (X, Y, Z) each
+    [L, lanes, W] (window 0 first) -> points [L, lanes], in one launch."""
+    return _horner("horner_g1", spec, None, b3_val, sums, c)
+
+
+def horner_g2(spec: FpSpec, nr: int, b3_val, sums, c: int):
+    """horner_g1 over Fq2: sums [L, 2, lanes, W] -> [L, 2, lanes]."""
+    return _horner("horner_g2", spec, nr, b3_val, sums, c)
 
 
 # -- plain versions --------------------------------------------------------------
@@ -169,6 +251,26 @@ def add_plain(k, b3_val, p1, p2):
     Y3 = w3 + w2  # < 4p lazy
     Z3 = w5 + w4  # < 4p lazy
     return tuple(k.reduce2p_many([X3, Y3, Z3], bound_k=4))
+
+
+def horner_plain(k, b3_val, sums, c: int):
+    """Plain version of the Horner kernel: the loop of msm/pippenger.py
+    over the plain K4/K5, from res = (0 : 1 : 0): for each window from the
+    top, c doublings add(res, res), then add(res, sums[.., w])."""
+    X = sums[0]
+    if X.is_cuda:
+        PLAIN_CALLS[f"horner_g{k.tower_deg}"] += 1
+    lanes, W = X.shape[-2:]
+    res = (
+        k.zero((lanes,), device=X.device),
+        k.one((lanes,), device=X.device).contiguous(),
+        k.zero((lanes,), device=X.device),
+    )
+    for w in reversed(range(W)):
+        for _ in range(c):
+            res = add_plain(k, b3_val, res, res)
+        res = add_plain(k, b3_val, res, tuple(x[..., w] for x in sums))
+    return res
 
 
 def mixed_add_plain(k, b3_val, p1, xy2):

@@ -13,7 +13,8 @@ coordinates hold values in [0, 2p) with exact digits.
 
 `add` and `add_affine` flatten the broadcast batch and go through the
 wrappers of curves/cuda_point.py, which dispatch by device: the CUDA
-kernels K4/K5 and K6/K7 on the card, their plain versions on the CPU.
+kernels K4/K5 and K6/K7 on the card, their plain versions on the CPU;
+`horner` runs an MSM's Horner chain in one launch.
 The TPU size gates of the JAX package have no counterpart here: the
 kernels mask their own ragged edge.  `to_affine` inverts every Z of a
 batch with one Fermat inverse (fields/fp.py batch_inv, K1 products).
@@ -115,9 +116,15 @@ class CurveDevice:
             out = cuda_point.add_g2(k.spec, k.nr_int, self.b3_val, flat[:3], flat[3:])
         return self._unflat(out, shape)
 
-    def double(self, pt: Point) -> Point:
-        """Complete doubling = add(P, P) (one code path, same cost)."""
-        return self.add(pt, pt)
+    def horner(self, sums: Point, c: int) -> Point:
+        """sum_w 2^(c w) sums[.., w] for each lane of window sums with
+        batch (lanes, W), window 0 first: one Horner kernel launch on CUDA
+        tensors (c doublings and one add a window, from the top), its
+        plain loop of additions on CPU tensors."""
+        sums = tuple(x.contiguous() for x in sums)
+        if self.k.tower_deg == 1:
+            return cuda_point.horner_g1(self.k.spec, self.b3_val, sums, c)
+        return cuda_point.horner_g2(self.k.spec, self.k.nr_int, self.b3_val, sums, c)
 
     def add_affine(self, p1: Point, xy2) -> Point:
         """p1 + affine (x2, y2) with infinity encoded (0, 0) — the MSM

@@ -12,7 +12,8 @@ Port of `groth16_tpu/msm/pippenger.py`.  Per c-bit window w:
      and the B-1 bucket-boundary values G_v = sum of points with digit
      >= v taken from it;
   4. Pippenger identity sum_d d*S_d = sum_{v=1}^{B-1} G_v;
-  5. window_sum = reduce(G_1..G_{B-1}); Horner: res = 2^c * res + w_sum.
+  5. window_sum = reduce(G_1..G_{B-1}); Horner: res = 2^c * res + w_sum,
+     every window of every lane in one launch (`CurveDevice.horner`).
 
 Step 3 runs one of two paths, chosen by `CONFIG.msm_fused_scan` as in
 the JAX package:
@@ -369,9 +370,4 @@ def msm_device_lanes(
     ]
     # window sums [*coords, lanes, W] (window 0 first), Horner from the top
     sums = tuple(torch.cat([s[i] for s in sums], dim=-1) for i in range(3))
-    res = g.infinity((lanes,), device=dev)
-    for w in reversed(range(w_padded)):
-        for _ in range(c):
-            res = g.double(res)
-        res = g.add(res, tuple(x[..., w] for x in sums))
-    return res
+    return g.horner(sums, c)

@@ -32,9 +32,11 @@ _LIBS: Dict[str, Tuple[str, Tuple[str, ...]]] = {
 }
 
 
-# From this many digits on, the point-add and scan kernels call the
-# Montgomery product instead of inlining it (csrc/field.cuh:
-# G16_OUTLINE_MUL): inlined, the L = 26 kernels take ptxas 12-15 minutes.
+# From this many digits on, the one-thread kernels (the mixed additions
+# K6/K7 and the scans K2/K3) call the Montgomery product instead of
+# inlining it (csrc/field.cuh: G16_OUTLINE_MUL): inlined, the L = 26
+# kernels take ptxas 12-15 minutes.  The group-form K4/K5 and the Horner
+# kernel inline it at every L: each has one call site.
 OUTLINE_MUL_MIN_LIMBS = 26
 
 

@@ -1,9 +1,9 @@
 """The CUDA kernels of the port against their plain PyTorch versions, on
-the card: K1 (mont_mul), K4-K7 (point additions), K2/K3 (the MSM suffix
-scans) and V (the op-rate microbenchmark), then batch inversion and
-to_affine, a small prove through every kernel, on each MSM scan path,
-against the exact prover, and a small device setup against the exact
-setup.
+the card: K1 (mont_mul), K4-K7 (point additions), the Horner kernel,
+K2/K3 (the MSM suffix scans) and V (the op-rate microbenchmark), then
+batch inversion and to_affine, a small prove through every kernel, on
+each MSM scan path, against the exact prover, and a small device setup
+against the exact setup.
 
 CUDA kernels have no CPU mode, so every test here needs an NVIDIA GPU and
 `nvcc` (the kernels build at first use) and skips elsewhere.  The machine
@@ -146,6 +146,77 @@ def test_point_add_kernels_match_plain(dev, curve, group, mixed):
     assert dec(c, g, got) == [add(x, y) for x, y in zip(lhs, rhs)]
 
 
+@pytest.mark.parametrize("n", [1, 3, 33, 4096 + 5])
+@pytest.mark.parametrize("curve", ["bn254", "bls12_381"])
+@pytest.mark.parametrize("group", ["g1", "g2"])
+def test_point_add_sizes_match_plain(dev, curve, group, n):
+    """K4/K5 (a lane group a point) at n points, digit-equal to the plain
+    version, with the special lanes P + P, P + (-P), P + inf, inf + P and
+    inf + inf (the first n of them where n < 5); the launch counted on its
+    counter and size class."""
+    c = get_curve(curve)
+    g2 = group == "g2"
+    lhs, rhs, add = _batches(curve, g2, max(n, 5), seed=5)
+    if n < 5:
+        lhs, rhs = lhs[-5:][:n], rhs[-5:][:n]
+    g = (codec.g2_ops if g2 else codec.g1_ops)(c)
+    to_dev = codec.g2_to_device if g2 else codec.g1_to_device
+    p1 = to_dev(c, lhs, "cpu")
+    p1 = tuple(x.to(dev) for x in g.add(p1, g.infinity(g.batch_shape(p1))))  # Z != 1
+    p2 = tuple(x.to(dev) for x in to_dev(c, rhs, "cpu"))
+    k = g.k
+    nr = k.nr_int if g2 else None
+    plain = cuda_point.add_plain(cuda_point._plain_ops(k.spec, nr), g.b3_val, p1, p2)
+    name, size = f"add_{group}", cuda_point.size_class(n)
+    before = (cuda_point.LAUNCHES[name], cuda_point.LAUNCH_SIZES[name][size])
+    got = g.add(p1, p2)
+    torch.cuda.synchronize()
+    assert (cuda_point.LAUNCHES[name], cuda_point.LAUNCH_SIZES[name][size]) == (before[0] + 1, before[1] + 1)
+    for x, y in zip(got, plain):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("curve,c,windows,lanes", [("bn254", 12, 22, 3), ("bls12_381", 16, 16, 1)])
+@pytest.mark.parametrize("group", ["g1", "g2"])
+def test_horner_kernel_matches_plain(dev, curve, group, c, windows, lanes):
+    """The Horner kernel in one launch against its plain version (the loop
+    of additions it replaces) at the c and window counts of the 2^16 bn254
+    and 2^20 bls12_381 proves, one window sum infinity; the result is the
+    exact sum_w 2^(c w) S_w."""
+    cv = get_curve(curve)
+    g2 = group == "g2"
+    lhs, rhs, add = _batches(curve, g2, lanes * windows + 5, seed=11)
+    g = (codec.g2_ops if g2 else codec.g1_ops)(cv)
+    to_dev = codec.g2_to_device if g2 else codec.g1_to_device
+    m = lanes * windows
+    sums = g.add(to_dev(cv, lhs[:m], dev), to_dev(cv, rhs[:m], dev))
+    inf = g.infinity((1,), device=dev)
+    sums = tuple(torch.cat([i, x[..., 1:]], dim=-1) for i, x in zip(inf, sums))
+    sums = tuple(x.reshape(x.shape[:-1] + (lanes, windows)).contiguous() for x in sums)
+    k = g.k
+    nr = k.nr_int if g2 else None
+    name = f"horner_{group}"
+    before = cuda_point.LAUNCHES[name]
+    got = g.horner(sums, c)
+    torch.cuda.synchronize()
+    assert cuda_point.LAUNCHES[name] == before + 1
+    want = cuda_point.horner_plain(cuda_point._plain_ops(k.spec, nr), g.b3_val, sums, c)
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+    ref = RefGroups(curve)
+    mul = ref.g2_mul if g2 else ref.g1_mul
+    terms = [None] + [add(x, y) for x, y in zip(lhs[1:m], rhs[1:m])]
+    exact = []
+    for lane in range(lanes):
+        acc = None
+        for w in range(windows):
+            t = terms[lane * windows + w]
+            acc = add(acc, mul(t, 1 << (c * w)) if t is not None else None)
+        exact.append(acc)
+    dec = codec.g2_from_device if g2 else codec.g1_from_device
+    assert dec(cv, g, got) == exact
+
+
 def _scan_points(prefix, totals, spec, D):
     """The points of a scan's prefix rows and chunk totals as tuples of
     Python ints: one (X, Y, Z) a point, each coordinate D components,
@@ -239,7 +310,8 @@ def test_suffix_scan_kernels_match_plain(dev, curve, group, segments):
 @pytest.mark.parametrize("fused", [True, False], ids=["fused", "capture"])
 def test_prover_on_the_card_matches_the_exact_prover(dev, fused):
     """TorchProver on cuda gives the exact prover's proof, on each MSM
-    scan path, through each of that path's kernels."""
+    scan path, through each of that path's kernels, the Horner kernel
+    among them."""
     from groth16_tpu_torch.config import configure
     from groth16_tpu_torch.protocol.generator import setup
     from groth16_tpu_torch.protocol.prover import create_proof_with_reduction
