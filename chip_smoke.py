@@ -49,8 +49,9 @@ Phases, each printing one JSON line:
             with 16;
   capture_path  the same prover with msm_fused_scan=False, counters set to
             0 just before and read just after one prove (K6 and K7 must have
-            launched); its proof must equal the main path's for the same r
-            and s;
+            launched), then one under torch.profiler; both proofs must equal
+            the main path's for the same r and s; K7 held against its plain
+            version at the most points of one of its launches there;
   device_setup  protocol.generator_torch.setup_device of the same 2^16 bn254
             circuit with the same seed, counters set to 0 just before and read
             just after (K1, K4, K5 must launch): its key must equal the exact
@@ -203,10 +204,11 @@ def phase_card():
 
     c, cb = get_curve(CURVE), get_curve(BLS_CURVE)
     bls = cuda_build.curve_variants(make_spec(cb.p).n_limbs, cb.fp2_nonresidue)
-    # the capture-scan path (K6/K7) runs on bn254 only
+    # the capture-scan path (K6/K7) runs on bn254 only; K7's L = 26
+    # library is built for its registers and build time
     names = (
         cuda_build.curve_variants(make_spec(c.p).n_limbs, c.fp2_nonresidue)
-        + [n for n in bls if "_mixed_" not in n]
+        + [n for n in bls if "_mixed_" not in n or "_d2_" in n]
         + ["ubench_ops"]
     )
     t0 = time.time()
@@ -224,6 +226,12 @@ def phase_card():
             for n, r in reports.items()
         },
     })
+    # K1 (each L and vector width) and K7 (the mixed G2 group form)
+    emit({"phase": "card", "k1_k7_ptxas": {
+        re.sub(r".*?((?:mont_mul|point_add_group)_kernel)ILi(\d+)ELi(-?\d+)E.*", r"\1<\2, \3>", k): v
+        for n, r in reports.items() if n == "mont_mul" or ("_d2_mixed_" in n)
+        for k, v in ptxas_summary(r["ptxas"]).items()
+    }})
 
 
 def sass_families(path: str) -> dict:
@@ -459,59 +467,97 @@ def phase_kernels(pk, matrices, device):
     """Every kernel against its plain version at N = 2^16; returns the
     per-kernel entries of the kernels line (launches filled in later)."""
     import numpy as np
+
+    from groth16_tpu_torch.curves.params import get_curve
+    from groth16_tpu_torch.protocol.device_keys import upload_proving_key
+
+    c = get_curve(CURVE)
+    n = N_KERNEL
+    rng = np.random.default_rng(0xC0DE)
+    entries = {"mont_mul": _mont_mul_kernel(rng, device)}
+
+    # K4-K7 on bn254 G1 / G2 with the proving key's own points
+    dpk = upload_proving_key(pk, matrices, device)
+    entries.update(_point_kernels(dpk, c, n, device, mixed=(False, True)))
+    _add_sweep(lambda g: _key_points(dpk, g), c, device, ("add_g1", "add_g2", "add_mixed_g2"))
+    entries.update(_horner_kernels(_prove_horner_shapes(dpk), c, device))
+    entries.update(_scan_kernels(dpk, c, rng, device))
+    return entries
+
+
+# K1's checked and timed shapes: (field, log2 n, period h of the second
+# operand or None): the 2^16 prove's NTT stages (2^15) and products
+# (2^16), the 2^20 prove's (2^19, 2^20), L = 26 at both sizes, and the
+# NTT's twiddle shape (h = 2^9) and a constant (h = 1)
+K1_SIZES = (
+    ("bn254.Fr", 15, None), ("bn254.Fr", 16, None), ("bn254.Fq", 16, None), ("bn254.Fr", 19, None),
+    ("bn254.Fr", 20, None), ("bls12_381.Fq", 16, None), ("bls12_381.Fq", 20, None),
+    ("bn254.Fr", 19, 1 << 9), ("bn254.Fr", 16, 1),
+)
+# elements a thread of K1's sweep (the kernel's 1 and 2)
+K1_ELEMENTS = (1, 2)
+
+
+def _mont_mul_kernel(rng, device):
+    """K1 at each of K1_SIZES: digit-equal to its plain version on lazy
+    operands (digit-wise sums of two exact values < p), then timed
+    (queued_ms) at the wrapper's elements a thread and at each of
+    K1_ELEMENTS; the bound counts an [L, h] operand once.  Returns the kernels-line entry
+    (the 2^16 bn254 Fr row)."""
+    import numpy as np
     import torch
 
     from groth16_tpu_torch.curves.params import get_curve
     from groth16_tpu_torch.fields import cuda_fp
     from groth16_tpu_torch.fields.spec import encode, make_spec
-    from groth16_tpu_torch.protocol.device_keys import upload_proving_key
-    from groth16_tpu_torch.utils.profiling import mont_mul_u32_ops
+    from groth16_tpu_torch.utils.profiling import mont_mul_word_ops
 
-    c = get_curve(CURVE)
-    n = N_KERNEL
-    rng = np.random.default_rng(0xC0DE)
-    entries = {}
-
-    # K1 on bn254 Fr (the main path's field), bn254 Fq, and L = 26
-    for label, modulus in (
-        ("bn254.Fr", c.r), ("bn254.Fq", c.p), ("bls12_381.Fq", get_curve("bls12_381").p)
-    ):
-        spec = make_spec(modulus)
-        L = spec.n_limbs
-        # lazy operands: digit-wise sums of two exact values < p
+    fields = {"bn254.Fr": get_curve(CURVE).r, "bn254.Fq": get_curve(CURVE).p,
+              "bls12_381.Fq": get_curve(BLS_CURVE).p}
+    entry = None
+    for label, log_n, h in K1_SIZES:
+        spec = make_spec(fields[label])
+        L, n = spec.n_limbs, 1 << log_n
+        # lazy operands: digit-wise sums of two exact values < p (4,096
+        # distinct columns, tiled)
         a, b = (
             sum(
                 torch.from_numpy(encode(
-                    [int.from_bytes(rng.bytes(48), "little") for _ in range(n)], spec, mont=False
+                    [int.from_bytes(rng.bytes(48), "little") for _ in range(4096)], spec, mont=False
                 ).astype(np.int32))
                 for _ in range(2)
-            ).to(device)
+            ).to(device).repeat(1, max(1, n // 4096))[:, :n].contiguous()
             for _ in range(2)
         )
-        got = cuda_fp.mont_mul(spec, a, b)
-        want = cuda_fp.mont_mul_plain(spec, a, b)
+        if h is not None:
+            b = b[:, :h].contiguous()
+        run = lambda: cuda_fp.mont_mul(spec, a, b, n)  # noqa: E731
+        got, want = run(), cuda_fp.mont_mul_plain(spec, a, b, n)
         torch.cuda.synchronize()
         if not torch.equal(got, want):
-            raise AssertionError(f"K1 {label}: kernel and plain version disagree")
-        ms = time_ms(lambda: cuda_fp.mont_mul(spec, a, b))
-        plain_ms = time_ms(lambda: cuda_fp.mont_mul_plain(spec, a, b))
-        row = {"kernel": "K1 mont_mul", "field": label, "n": n, "tolerance": 0,
-               "max_abs_err": max_abs_err([got], [want]),
-               "ms": ms, "plain_ms": plain_ms, **bound(3 * L * 4 * n, n * mont_mul_u32_ops(L))}
+            raise AssertionError(f"K1 {label} at n = 2^{log_n}, h = {h}: kernel and plain version disagree")
+        err = max_abs_err([got], [want])
+        del got, want
+        ms, queued = queued_ms(run)
+        vec = cuda_fp.elements_per_thread(L, n)
+        sweep = {}
+        chosen = cuda_fp.elements_per_thread
+        try:
+            for v in K1_ELEMENTS:
+                cuda_fp.elements_per_thread = lambda L_, n_, v=v: v  # noqa: E731
+                sweep[v] = queued_ms(run)[0]
+        finally:
+            cuda_fp.elements_per_thread = chosen
+        plain_ms = time_ms(lambda: cuda_fp.mont_mul_plain(spec, a, b, n), reps=3)
+        row = {"kernel": "K1 mont_mul", "field": label, "n": n, "period": h, "tolerance": 0,
+               "max_abs_err": err, "ms": ms, "queued_before_spin_ended": queued,
+               "elements_per_thread": vec, "ms_by_elements_per_thread": sweep, "plain_ms": plain_ms,
+               **bound((2 * n + (h or n)) * L * 4, n * mont_mul_word_ops(L)), "card": card_line()}
         emit({"phase": "kernels", **row})
-        if label == "bn254.Fr":
-            entries["mont_mul"] = {
-                "name": "mont_mul", "route": "cuda", "source": "groth16_tpu_torch/csrc/mont_mul.cu",
-                "replaces": "groth16_tpu/fields/pallas_fp.py:114", **_kline(row),
-            }
-
-    # K4-K7 on bn254 G1 / G2 with the proving key's own points
-    dpk = upload_proving_key(pk, matrices, device)
-    entries.update(_point_kernels(dpk, c, n, device, mixed=(False, True)))
-    _add_sweep(lambda g: _key_points(dpk, g), c, device)
-    entries.update(_horner_kernels(_prove_horner_shapes(dpk), c, device))
-    entries.update(_scan_kernels(dpk, c, rng, device))
-    return entries
+        if (label, log_n, h) == ("bn254.Fr", 16, None):
+            entry = {"name": "mont_mul", "route": "cuda", "source": "groth16_tpu_torch/csrc/mont_mul.cu",
+                     "replaces": "groth16_tpu/fields/pallas_fp.py:114", **_kline(row)}
+    return entry
 
 
 POINT_KERNELS = {  # name: (tag, mixed, G2, the TPU kernel)
@@ -588,7 +634,7 @@ def _point_kernels(dpk, c, n, device, mixed):
         if not all(torch.equal(x, y) for x, y in zip(got, want)):
             raise AssertionError(f"{tag} {name} on {c.name}: kernel and plain version disagree")
         _check_special_lanes(g, got)
-        ms, plain_ms = time_ms(run), time_ms(run_plain)
+        ms, plain_ms = queued_ms(run)[0], time_ms(run_plain)
         row = {"kernel": f"{tag} {name}", "curve": c.name, "n": n, "live": live, "tolerance": 0,
                "max_abs_err": max_abs_err(got, want), "ms": ms, "plain_ms": plain_ms,
                **bound(nbytes, live * point_add_u32_ops(L, g2, mixed=is_mixed))}
@@ -600,46 +646,69 @@ def _point_kernels(dpk, c, n, device, mixed):
     return entries
 
 
+def _add_ops(name, c):
+    """(curve ops, mixed) of a point-add kernel's name: add_g1, add_g2,
+    add_mixed_g1, add_mixed_g2."""
+    from groth16_tpu_torch.curves import codec
+
+    g = codec.g2_ops(c) if name.endswith("g2") else codec.g1_ops(c)
+    return g, "mixed" in name
+
+
+def _add_run(name, g, mixed, src, n, device):
+    """(kernel call, plain call) of one point-add kernel on n points made
+    from src by _kernel_inputs."""
+    from groth16_tpu_torch.curves import cuda_point
+
+    plain_ops = cuda_point._plain_ops(g.k.spec, getattr(g.k, "nr_int", None))
+    p1, p2, p1m, xy = _kernel_inputs(src, g, n, device)
+    if mixed:
+        return (lambda: g.add_affine(p1m, xy)), (lambda: cuda_point.mixed_add_plain(plain_ops, g.b3_val, p1m, xy))
+    return (lambda: g.add(p1, p2)), (lambda: cuda_point.add_plain(plain_ops, g.b3_val, p1, p2))
+
+
 def _check_adds(src_of, c, device, sizes):
-    """K4 and K5 on curve c held digit for digit against the plain version
-    at each of sizes["add_g1"] and sizes["add_g2"] points (the special
-    lanes where n >= 4); src_of(g): the points the inputs come from.
-    Returns `sizes`."""
+    """Each point-add kernel named in `sizes` (add_g1, add_g2,
+    add_mixed_g2) on curve c held digit for digit against its plain
+    version at each of sizes[name] points (the special lanes where
+    n >= 4); src_of(g): the points the inputs come from.  Returns
+    `sizes`."""
     import torch
 
-    from groth16_tpu_torch.curves import codec, cuda_point
-
-    for name, g in (("add_g1", codec.g1_ops(c)), ("add_g2", codec.g2_ops(c))):
-        plain_ops = cuda_point._plain_ops(g.k.spec, getattr(g.k, "nr_int", None))
+    for name, ns in sizes.items():
+        g, mixed = _add_ops(name, c)
         src = src_of(g)
-        for n in sizes[name]:
-            p1, p2, _, _ = _kernel_inputs(src, g, n, device)
-            got, want = g.add(p1, p2), cuda_point.add_plain(plain_ops, g.b3_val, p1, p2)
+        for n in ns:
+            run, run_plain = _add_run(name, g, mixed, src, n, device)
+            got, want = run(), run_plain()
             torch.cuda.synchronize()
             if not all(torch.equal(x, y) for x, y in zip(got, want)):
-                raise AssertionError(f"K{3 + g.k.tower_deg} on {c.name} at n = {n}: differs from the plain version")
+                raise AssertionError(f"{name} on {c.name} at n = {n}: differs from the plain version")
             if n >= 4:
                 _check_special_lanes(g, got)
     return sizes
 
 
-def _add_sweep(src_of, c, device):
-    """K4 and K5 on curve c: checked at ADD_CHECK_N points, then timed
-    (queued_ms) at ADD_SWEEP_N points, beside the launch floor (an empty
-    kernel's time, queued and alone)."""
+def _add_sweep(src_of, c, device, names):
+    """The point-add kernels `names` on curve c: checked at ADD_CHECK_N
+    points (and 2^17 for K7), then timed (queued_ms) at ADD_SWEEP_N
+    points, beside the launch floor (an empty kernel's time, queued and
+    alone)."""
     import torch
 
-    from groth16_tpu_torch.curves import codec
     from groth16_tpu_torch.fields.spec import make_spec
 
-    checked = _check_adds(src_of, c, device, dict.fromkeys(("add_g1", "add_g2"), ADD_CHECK_N))
+    checked = _check_adds(src_of, c, device, {
+        name: ADD_CHECK_N + ((1 << 17,) if "mixed" in name else ()) for name in names
+    })
     sleep0 = lambda: torch.cuda._sleep(0)  # noqa: E731
     floor_ms, queued = queued_ms(sleep0)
-    for name, g in (("add_g1", codec.g1_ops(c)), ("add_g2", codec.g2_ops(c))):
+    for name in names:
+        g, mixed = _add_ops(name, c)
         src, sweep = src_of(g), {}
         for n in ADD_SWEEP_N:
-            p1, p2, _, _ = _kernel_inputs(src, g, n, device)
-            sweep[n], ok = queued_ms(lambda: g.add(p1, p2))
+            run, _ = _add_run(name, g, mixed, src, n, device)
+            sweep[n], ok = queued_ms(run)
             queued &= ok
         emit({"phase": "kernels", "kernel": f"{name} sweep", "curve": c.name,
               "L": make_spec(c.p).n_limbs, "digit_equal_at_n": checked[name], "tolerance": 0,
@@ -955,22 +1024,31 @@ def _counters():
 
 def zero_counts():
     from groth16_tpu_torch.curves import cuda_point
+    from groth16_tpu_torch.fields import cuda_fp
 
     for m in _counters():
         for d in (m.LAUNCHES, m.PLAIN_CALLS):
             for k in d:
                 d[k] = 0
-    for d in (*cuda_point.LAUNCH_SIZES.values(), cuda_point.LARGEST_LAUNCH):
-        for k in d:
-            d[k] = 0
+    for m in (cuda_fp, cuda_point):
+        for d in (*m.LAUNCH_SIZES.values(), m.LARGEST_LAUNCH):
+            for k in d:
+                d[k] = 0
 
 
 def launch_sizes() -> dict:
-    """K4/K5 launches by points a launch, and the most points of one
-    launch, since zero_counts()."""
+    """Launches by size class (K1: elements a launch, and those that read
+    an operand with a period; K4-K7: points a launch), and the most of one
+    launch, of each kernel that launched since zero_counts()."""
     from groth16_tpu_torch.curves import cuda_point
+    from groth16_tpu_torch.fields import cuda_fp
 
-    return {k: dict(v, largest=cuda_point.LARGEST_LAUNCH[k]) for k, v in cuda_point.LAUNCH_SIZES.items()}
+    return {
+        k: dict(v, largest=m.LARGEST_LAUNCH[k])
+        for m in (cuda_fp, cuda_point)
+        for k, v in m.LAUNCH_SIZES.items()
+        if m.LARGEST_LAUNCH[k]
+    }
 
 
 def read_counts(kernels) -> dict:
@@ -1050,7 +1128,7 @@ def phase_main_path(pk, vk, cs, rng, device):
         "phase": "main_path", "curve": CURVE, "log_n": LOG_N, "msm_scan": "fused",
         "pk_upload_s": upload_s, "first_prove_s": first_s, "assignment_encode_s": encode_s,
         "steady_prove_s": walls, "phases_s": timer.as_dict(), "profile": prof,
-        "launches_per_prove": launches, "add_launches_by_points": sizes,
+        "launches_per_prove": launches, "launches_by_size": sizes,
         "proofs_verified": len(proofs), "wrong_input_rejected": True,
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
     })
@@ -1059,10 +1137,13 @@ def phase_main_path(pk, vk, cs, rng, device):
 
 def phase_capture_path(prover, cs, first):
     """One prove with the capture-scan MSM path (K6/K7 steps); its proof
-    must equal the main path's for the same r and s."""
+    must equal the main path's for the same r and s.  K7 is then held
+    against its plain version at the most points of one of its launches
+    in that prove."""
     import torch
 
     from groth16_tpu_torch.config import configure
+    from groth16_tpu_torch.curves.params import get_curve
     from groth16_tpu_torch.utils.profiling import PhaseTimer
 
     r, s, want = first
@@ -1075,11 +1156,19 @@ def phase_capture_path(prover, cs, first):
         torch.cuda.synchronize()
         wall = time.time() - t0
         launches = read_counts(CAPTURE_KERNELS)
-    if (got.a, got.b, got.c) != (want.a, want.b, want.c):
-        raise AssertionError("the capture-scan proof differs from the fused-scan proof")
+        sizes = launch_sizes()
+        # a steady one under the profiler: the device time of K6 and K7
+        z_enc = prover.encode_assignment(z)
+        steady, prof = profile_prove(lambda: prover.prove_encoded_host(z_enc, r, s))
+    for proof in (got, steady):
+        if (proof.a, proof.b, proof.c) != (want.a, want.b, want.c):
+            raise AssertionError("the capture-scan proof differs from the fused-scan proof")
+    widest = {"add_mixed_g2": [sizes["add_mixed_g2"]["largest"]]}
+    _check_adds(lambda g: _key_points(prover.dpk, g), get_curve(CURVE), prover.device, widest)
     emit({
         "phase": "capture_path", "msm_scan": "capture", "prove_s": wall, "phases_s": timer.as_dict(),
-        "launches_per_prove": launches, "equal_to_main_path_proof": True,
+        "launches_per_prove": launches, "launches_by_size": sizes, "equal_to_main_path_proof": True,
+        "k7_digit_equal_at_n": widest["add_mixed_g2"], "profile": prof,
     })
     return launches
 
@@ -1103,11 +1192,13 @@ def phase_device_setup(pk_exact):
     torch.cuda.synchronize()
     wall = time.time() - t0
     launches = read_counts(SETUP_KERNELS)
+    sizes = launch_sizes()
     if pk != pk_exact:
         raise AssertionError("the device setup's key differs from the exact setup's")
     emit({
         "phase": "device_setup", "curve": CURVE, "log_n": LOG_N, "setup_s": wall,
-        "phases_s": timer.as_dict(), "launches": launches, "equal_to_exact_setup": True,
+        "phases_s": timer.as_dict(), "launches": launches, "launches_by_size": sizes,
+        "equal_to_exact_setup": True,
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
     })
     return launches
@@ -1190,6 +1281,7 @@ def phase_bls(device):
     out["setup_s"] = time.time() - t0
     out["setup_phases_s"] = timer.as_dict()
     out["setup_launches"] = read_counts(SETUP_KERNELS)
+    out["setup_launches_by_size"] = launch_sizes()
     out["setup_peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
     out["key_points"] = {"g1": sum(record["counts"]) + 3, "g2": record["counts"][1] + 3}
     _step(out, "setup")
@@ -1213,7 +1305,7 @@ def phase_bls(device):
     rows = {**_point_kernels(prover.dpk, c, N_KERNEL, device, mixed=(False,)),
             **_horner_kernels(_prove_horner_shapes(prover.dpk), c, device),
             **_scan_kernels(prover.dpk, c, krng, device)}
-    _add_sweep(lambda g: _key_points(prover.dpk, g), c, device)
+    _add_sweep(lambda g: _key_points(prover.dpk, g), c, device, ("add_g1", "add_g2"))
     rng = Rng(0xB16)
     r, s = rng.field_element(c.r), rng.field_element(c.r)
     # the proves' peak (the key stays resident), not the kernel checks'
@@ -1225,7 +1317,7 @@ def phase_bls(device):
     out["first_prove_s"] = time.time() - t0
     launches = read_counts(MAIN_KERNELS)
     out["launches_per_prove"] = launches
-    out["add_launches_by_points"] = sizes = launch_sizes()
+    out["launches_by_size"] = sizes = launch_sizes()
     z_enc = prover.encode_assignment(z)
     ptimer = PhaseTimer(verbose=False, device="cuda")
     walls = []
@@ -1239,7 +1331,7 @@ def phase_bls(device):
     out["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
     # K4/K5 at 2^17 points (the G2 tail) and at the most points of one of
     # the prove's launches (after the peak: the plain versions take more)
-    widest = {k: sorted({1 << 17, v["largest"]}) for k, v in sizes.items()}
+    widest = {k: sorted({1 << 17, sizes[k]["largest"]}) for k in ("add_g1", "add_g2")}
     out["add_digit_equal_at_n"] = _check_adds(lambda g: _key_points(prover.dpk, g), c, device, widest)
     r, s = rng.field_element(c.r), rng.field_element(c.r)
     proof, prof = profile_prove(lambda: prover.prove_encoded_host(z_enc, r, s))

@@ -65,9 +65,10 @@ __device__ __forceinline__ uint32_t rex(uint32_t (&x)[L]) {
   return c & MASK;
 }
 
-// G16_OUTLINE_MUL (utils/cuda_build.py sets it for the L = 26 point-add and
-// scan libraries): mont_mul is compiled once and called, instead of being
-// inlined into each of the 12-52 products of a point addition.  Inlined at
+// G16_OUTLINE_MUL (utils/cuda_build.py sets it for the L = 26 libraries of
+// the one-thread kernels, K6 and the scans): mont_mul is compiled once and
+// called, instead of being inlined into each of the 12-52 products of a
+// point addition.  Inlined at
 // L = 26, one such kernel took ptxas 12-15 minutes (spilling up to 27 KB a
 // thread over Fq2); a call passes its operands through the stack, a few
 // dozen words against the ~4,000 instructions of the product.
@@ -251,6 +252,126 @@ __device__ __forceinline__ Fe<L, D> fb3(const Consts<L>& k) {
 #pragma unroll
     for (int j = 0; j < L; j++) r.v[c][j] = k.b3(c, j);
   return r;
+}
+
+// -- the word engine: the same Montgomery product on 32-bit words -----------------
+//
+// mont_mul_words<L> returns mont_mul's digits with a fraction of its
+// instructions: Hopper multiplies 32 x 32 -> 64 bits (the PTX carry chains
+// mad.lo.cc / madc.hi.cc), so an operand of 15 L bits is W words instead of
+// L digits.  R stays 2^(15 L): FULL = floor(15 L / 32) reduction steps of
+// 32 bits, then one PART = 15 L - 32 FULL bit step, with m taken mod
+// 2^PART.  T = (a b + M p) / R with 0 <= M < R and M = -a b p^-1 (mod R)
+// has one such M, whatever word size builds it, so T and its exact digits
+// are those of the 15-bit CIOS (tests/test_torch_fp.py holds a model of
+// these steps against the plain version).  Values below 8p must fit in W
+// words: W = 9 at L = 18; at L = 26, 12 words hold 8p for p < 2^381
+// (fields/cuda_fp.py checks it).  Only K1 (mont_mul.cu) uses it.
+
+template <int L>
+struct Words {
+  static constexpr int W = L == 26 ? 12 : (15 * L - 3 + 31) / 32;  // holds 8p
+  static constexpr int FULL = 15 * L / 32;
+  static constexpr int PART = 15 * L - 32 * FULL;
+  static_assert(W - FULL <= 1 && FULL <= W && PART > 0, "one multiply row past the full steps");
+};
+
+// p as words and -p^-1 mod 2^32 (its low PART bits are -p^-1 mod 2^PART)
+struct WordConsts {
+  uint32_t p[12];
+  uint32_t n0;
+};
+
+// t[0, W + 2) += x * y[0, W): the low halves, carries into t[W] and t[W+1],
+// then the high halves one word up.  Each chain is one run of asm
+// statements with nothing between them that touches the carry flag.
+template <int W>
+__device__ __forceinline__ void mad_row(uint32_t (&t)[W + 2], uint32_t x, const uint32_t* y) {
+  asm volatile("mad.lo.cc.u32 %0, %1, %2, %0;" : "+r"(t[0]) : "r"(x), "r"(y[0]));
+#pragma unroll
+  for (int j = 1; j < W; j++)
+    asm volatile("madc.lo.cc.u32 %0, %1, %2, %0;" : "+r"(t[j]) : "r"(x), "r"(y[j]));
+  asm volatile("addc.cc.u32 %0, %0, 0;" : "+r"(t[W]));
+  asm volatile("addc.u32 %0, %0, 0;" : "+r"(t[W + 1]));
+  asm volatile("mad.hi.cc.u32 %0, %1, %2, %0;" : "+r"(t[1]) : "r"(x), "r"(y[0]));
+#pragma unroll
+  for (int j = 1; j < W; j++)
+    asm volatile("madc.hi.cc.u32 %0, %1, %2, %0;" : "+r"(t[j + 1]) : "r"(x), "r"(y[j]));
+  asm volatile("addc.u32 %0, %0, 0;" : "+r"(t[W + 1]));
+}
+
+// digit j (exact, < 2^15) of an operand into its words
+template <int W>
+__device__ __forceinline__ void pack_digit(uint32_t (&w)[W], int j, uint32_t d) {
+  const int bit = BITS * j, wi = bit / 32, off = bit % 32;
+  if (wi < W) w[wi] |= d << off;
+  if (off > 32 - BITS && wi + 1 < W) w[wi + 1] |= d >> (32 - off);
+}
+
+// a b R^-1 on words (a, b < 8p) -> words of a value < 2p.  CIOS: rows
+// i < FULL add a_i b, then m p with m = t_0 n0 and shift one word; the
+// row past them (L = 18) adds a_8 b unshifted; the PART-bit step last.
+template <int L>
+__device__ __forceinline__ void mont_mul_w(const uint32_t (&a)[Words<L>::W],
+                                           const uint32_t (&b)[Words<L>::W],
+                                           uint32_t (&out)[Words<L>::W], const WordConsts& k) {
+  constexpr int W = Words<L>::W, FULL = Words<L>::FULL, PART = Words<L>::PART;
+  uint32_t t[W + 2];
+#pragma unroll
+  for (int j = 0; j < W + 2; j++) t[j] = 0;
+#pragma unroll
+  for (int i = 0; i < W; i++) {
+    mad_row<W>(t, a[i], b);
+    if (i < FULL) {
+      mad_row<W>(t, t[0] * k.n0, k.p);  // t[0] becomes 0
+#pragma unroll
+      for (int j = 0; j < W + 1; j++) t[j] = t[j + 1];
+      t[W + 1] = 0;
+    }
+  }
+  mad_row<W>(t, (t[0] * k.n0) & ((1u << PART) - 1), k.p);
+#pragma unroll
+  for (int j = 0; j < W; j++) out[j] = __funnelshift_r(t[j], t[j + 1], PART);
+}
+
+// words of a value < 2^(15 L) -> its exact digits
+template <int L>
+__device__ __forceinline__ void unpack_digits(const uint32_t (&w)[Words<L>::W], uint32_t (&d)[L]) {
+  constexpr int W = Words<L>::W;
+#pragma unroll
+  for (int j = 0; j < L; j++) {
+    const int bit = BITS * j, wi = bit / 32, off = bit % 32;
+    uint32_t v = wi < W ? w[wi] >> off : 0;
+    if (off > 32 - BITS && wi + 1 < W) v |= w[wi + 1] << (32 - off);
+    d[j] = v & MASK;
+  }
+}
+
+// mont_mul's contract and digits (inputs any digit class, values < 8p;
+// output exact digits < 2p) on the word engine: resolve each operand to
+// exact digits (rex: columns < 2^30, value < R), pack, multiply, unpack.
+template <int L>
+__device__ __forceinline__ void mont_mul_words(const uint32_t (&a_in)[L],
+                                               const uint32_t (&b_in)[L], uint32_t (&out)[L],
+                                               const WordConsts& k) {
+  constexpr int W = Words<L>::W;
+  uint32_t a[L], b[L], wa[W], wb[W], wr[W];
+#pragma unroll
+  for (int j = 0; j < L; j++) {
+    a[j] = a_in[j];
+    b[j] = b_in[j];
+  }
+  rex<L>(a);
+  rex<L>(b);
+#pragma unroll
+  for (int j = 0; j < W; j++) wa[j] = wb[j] = 0;
+#pragma unroll
+  for (int j = 0; j < L; j++) {
+    pack_digit<W>(wa, j, a[j]);
+    pack_digit<W>(wb, j, b[j]);
+  }
+  mont_mul_w<L>(wa, wb, wr, k);
+  unpack_digits<L>(wr, out);
 }
 
 // Fp: mont_mul.  Fp2 (|NR| <= 16): Fp2Ops.mul_many — schoolbook with the

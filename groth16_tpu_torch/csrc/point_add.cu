@@ -19,30 +19,32 @@
 // few points most launches of a prove carry, the bound is microseconds and
 // what costs is the latency of one addition.
 //
-// The full addition (K4, K5) runs on a group of lanes, and so does the
-// MSM's Horner chain; the mixed addition (K6, K7) on one thread:
+// The full addition (K4, K5), the G2 mixed one (K7) and the MSM's Horner
+// chain run on a group of lanes; the G1 mixed addition (K6) on one thread:
 //   point_add_group_kernel a group of lanes per point (6 for G1, 5 groups a
 //                          warp; 24 for G2, one a warp): each of the
-//                          formula's three product stages (6, 2 and 6
-//                          products, x4 Fq products over Fp2) runs one
-//                          product a lane, its operands and results in
-//                          shared memory; the pre-adds, the Fp2
+//                          formula's three product stages (full: 6, 2 and
+//                          6 products; mixed: 6, 1 and 6; x4 Fq products
+//                          over Fp2) runs one product a lane, its operands
+//                          and results in shared memory; the pre-adds, the Fp2
 //                          combinations, the subtractions and the final
 //                          reductions run one element a lane between them.
 //                          The chain of a point falls from 12 (G1) or 48
 //                          (G2) sequential products to 3, and a lane holds
-//                          one product's digits, so nothing spills.
+//                          one product's digits, so nothing spills.  The
+//                          mixed form tests P2 for infinity first: such a
+//                          point skips every stage (a G2 warp as a whole).
 //   horner_kernel          res = sum_w 2^(c w) S_w for every lane of one MSM
 //                          in one launch: per window from the top c
 //                          doublings add(P, P) and one add of S_w, each the
 //                          group body, the running point in shared memory.
-//   point_add_kernel       K6/K7, one thread per point, the whole formula
-//                          in registers (the G2 kernel holds more live
-//                          digits than a thread has registers and spills;
-//                          PERF.md).
+//   point_add_kernel       K6, one thread per point, the whole formula in
+//                          registers.
 // Every element goes through the same mont_mul, sub, sub_exact, cond_sub and
-// reduce_to_2p of field.cuh in the same order as rcb_add (point.cuh), so the
-// digits are the plain version's (curves/cuda_point.py).
+// reduce_to_2p of field.cuh in the same order as rcb_add and rcb_add_mixed
+// (point.cuh), so the digits are the plain versions' (curves/cuda_point.py).
+// A mixed G2 library holds the group form only, a mixed G1 library the
+// one-thread form only.
 
 #include <cuda_runtime.h>
 
@@ -128,6 +130,44 @@ __device__ __forceinline__ void st(uint32_t* s, const uint32_t (&x)[L]) {
   for (int j = 0; j < L; j++) s[j] = x[j];
 }
 
+// fmul's combination of stage products q < nq over Fp2 (the raw Fq
+// products a0 b0, a1 b1, a0 b1, a1 b0 of each after the slots), two lanes
+// a product: c0 = v00 + NR v11 to [0, 2p), c1 = v01 + v10 to [0, 2p),
+// into slot pick(to, q).
+template <int L, int NR>
+__device__ __forceinline__ void fp2_combine(uint32_t* s, int t, int nq, unsigned long long to,
+                                            const Consts<L>& k) {
+  using G = Group<L, 2>;
+  constexpr int E = G::E, LP = G::LP;
+  constexpr int ANR = NR < 0 ? -NR : NR;
+  constexpr int BOUND = 2 + 2 * ANR;
+  if (t >= 0 && t < nq * 2) {
+    const int q = t / 2;
+    const uint32_t* raw = s + G::SLOTS * E + q * 4 * LP;
+    uint32_t u[L], v[L], r[L];
+    if (t % 2 == 0) {
+      ld<L>(u, raw);
+      ld<L>(v, raw + LP);
+#pragma unroll
+      for (int j = 0; j < L; j++) v[j] *= ANR;
+      if constexpr (NR < 0) {
+        g16::sub<L>(u, v, 2 * ANR, r, k);
+      } else {
+#pragma unroll
+        for (int j = 0; j < L; j++) r[j] = u[j] + v[j];
+      }
+      g16::reduce_to_2p<L, (BOUND > 4 ? BOUND : 4)>(r, k);
+    } else {
+      ld<L>(u, raw + 2 * LP);
+      ld<L>(v, raw + 3 * LP);
+#pragma unroll
+      for (int j = 0; j < L; j++) r[j] = u[j] + v[j];
+      g16::cond_sub<L>(r, 2, k);
+    }
+    st<L>(s + pick(to, q) * E + (t % 2) * LP, r);
+  }
+}
+
 // rcb_add (point.cuh) on one point's shared words s, by its group of lanes:
 // t is the lane's index in the group, -1 on a lane without a point.  Every
 // lane of the warp calls it (it synchronises the warp).  Inputs in slots
@@ -172,34 +212,7 @@ __device__ __forceinline__ void group_add(uint32_t* s, int t, const Consts<L>& k
     }
     __syncwarp();
     if constexpr (D == 2) {
-      // fmul's combination: c0 = v00 + NR v11 to [0, 2p), c1 = v01 + v10
-      constexpr int ANR = NR < 0 ? -NR : NR;
-      constexpr int BOUND = 2 + 2 * ANR;
-      if (t >= 0 && t < nq * 2) {
-        const int q = t / 2;
-        const uint32_t* raw = s + G::SLOTS * E + q * 4 * LP;
-        uint32_t u[L], v[L], r[L];
-        if (t % 2 == 0) {
-          ld<L>(u, raw);
-          ld<L>(v, raw + LP);
-#pragma unroll
-          for (int j = 0; j < L; j++) v[j] *= ANR;
-          if constexpr (NR < 0) {
-            g16::sub<L>(u, v, 2 * ANR, r, k);
-          } else {
-#pragma unroll
-            for (int j = 0; j < L; j++) r[j] = u[j] + v[j];
-          }
-          g16::reduce_to_2p<L, (BOUND > 4 ? BOUND : 4)>(r, k);
-        } else {
-          ld<L>(u, raw + 2 * LP);
-          ld<L>(v, raw + 3 * LP);
-#pragma unroll
-          for (int j = 0; j < L; j++) r[j] = u[j] + v[j];
-          g16::cond_sub<L>(r, 2, k);
-        }
-        st<L>(s + pick(to, q) * E + (t % 2) * LP, r);
-      }
+      fp2_combine<L, NR>(s, t, nq, to, k);
       __syncwarp();
     }
     // the element work after each stage, one component a lane
@@ -250,6 +263,104 @@ __device__ __forceinline__ void group_add(uint32_t* s, int t, const Consts<L>& k
   }
 }
 
+// Slots of the mixed addition (rcb_add_mixed): inputs X1..Y2 as above, the
+// pre-adds X1+Y1 and X2+Y2 in PRE, PRE+1, b3 in B3.  Stage 1's products
+// land in 12-17; the element work after it writes over Z2's slot and the
+// pre-adds' and into 8-11; t5b overwrites t0 and w0..w5 end in 13-18.
+enum : int {
+  MT0 = 12, MT1 = 13, MM3 = 14, MY2Z1 = 15, MX2Z1 = 16, MT2B = 17,
+  MZ3S = 5, MT1M = 7, MT3 = 8, MT4 = 9, MT5 = 10, MT0T = 11,
+  MT5B = 12, MW0 = 13,
+};
+
+// rcb_add_mixed (point.cuh) on one point's shared words s by its group of
+// lanes, as group_add: the same three product stages (6, 1 and 6
+// products), t the lane's index in the group or -1 (no point, or P2
+// infinity: that point's P1 stays in slots 0-2).  Inputs in slots X1..Y2
+// and b3 in B3; (X3, Y3, Z3) out in slots 0-2.
+template <int L, int D, int NR>
+__device__ __forceinline__ void group_add_mixed(uint32_t* s, int t, const Consts<L>& k) {
+  using G = Group<L, D>;
+  constexpr int E = G::E, LP = G::LP, DD = D * D;
+  if (t >= 0 && t < 2 * D) {  // X1 + Y1, X2 + Y2 (lazy)
+    const int e = t / D, c = t % D;
+#pragma unroll
+    for (int j = 0; j < L; j++)
+      s[(PRE + e) * E + c * LP + j] = s[(X1 + 3 * e) * E + c * LP + j] + s[(Y1 + 3 * e) * E + c * LP + j];
+  }
+  __syncwarp();
+#pragma unroll 1
+  for (int stage = 0; stage < 3; stage++) {
+    // t0 t1 m3 y2z1 x2z1 t2b | t5b | w0..w5
+    const int nq = stage == 1 ? 1 : 6;
+    const unsigned long long ta = stage == 0   ? slots6(X1, Y1, PRE, Y2, X2, Z1)
+                                  : stage == 1 ? slots6(MT5, 0, 0, 0, 0, 0)
+                                               : slots6(MT4, MT3, MT5B, MT1M, MT0T, MZ3S);
+    const unsigned long long tb = stage == 0   ? slots6(X2, Y2, PRE + 1, Z1, Z1, B3)
+                                  : stage == 1 ? slots6(B3, 0, 0, 0, 0, 0)
+                                               : slots6(MT5B, MT1M, MT0T, MZ3S, MT3, MT4);
+    const unsigned long long to = stage == 0   ? slots6(MT0, MT1, MM3, MY2Z1, MX2Z1, MT2B)
+                                  : stage == 1 ? slots6(MT5B, 0, 0, 0, 0, 0)
+                                               : slots6(MW0, MW0 + 1, MW0 + 2, MW0 + 3, MW0 + 4, MW0 + 5);
+    if (t >= 0 && t < nq * DD) {
+      const int q = t / DD, m = t % DD;
+      const int ca = (m == 1 || m == 3), cb = (m == 1 || m == 2);
+      uint32_t a[L], b[L], r[L];
+      ld<L>(a, s + pick(ta, q) * E + ca * LP);
+      ld<L>(b, s + pick(tb, q) * E + cb * LP);
+      g16::mont_mul_inline<L>(a, b, r, k);
+      st<L>(D == 1 ? s + pick(to, q) * E : s + G::SLOTS * E + t * LP, r);
+    }
+    __syncwarp();
+    if constexpr (D == 2) {
+      fp2_combine<L, NR>(s, t, nq, to, k);
+      __syncwarp();
+    }
+    if (stage == 1) continue;  // nothing between t5b and the w's
+    const int ne = stage == 0 ? 6 : 3;
+    if (t >= 0 && t < ne * D) {
+      const int e = t / D, c = t % D;
+      const int off = c * LP;
+      uint32_t a[L], b[L], r[L];
+      if (stage == 0) {
+        // t3 = m3 - (t0 + t1) + 4p, t4 = Y1 + y2z1, t5 = X1 + x2z1,
+        // t0t = 3 t0, Z3s = t1 + t2b (lazy), t1m = t1 - t2b + 2p
+        const int a_slot = pick(slots6(MM3, Y1, X1, MT0, MT1, MT1), e);
+        const int b_slot = pick(slots6(MT0, MY2Z1, MX2Z1, MT0, MT2B, MT2B), e);
+        ld<L>(a, s + a_slot * E + off);
+        ld<L>(b, s + b_slot * E + off);
+        if (e == 0) {
+#pragma unroll
+          for (int j = 0; j < L; j++) b[j] += s[MT1 * E + off + j];
+          g16::sub<L>(a, b, 4, r, k);
+        } else if (e == 5) {
+          g16::sub<L>(a, b, 2, r, k);
+        } else if (e == 3) {
+#pragma unroll
+          for (int j = 0; j < L; j++) r[j] = a[j] + a[j] + a[j];
+        } else {
+#pragma unroll
+          for (int j = 0; j < L; j++) r[j] = a[j] + b[j];
+        }
+        st<L>(s + pick(slots6(MT3, MT4, MT5, MT0T, MZ3S, MT1M), e) * E + off, r);
+      } else {
+        // X3 = w1 - w0 + 2p, Y3 = w3 + w2, Z3 = w5 + w4, each to [0, 2p)
+        ld<L>(a, s + (MW0 + 2 * e + 1) * E + off);
+        ld<L>(b, s + (MW0 + 2 * e) * E + off);
+        if (e == 0) {
+          g16::sub<L>(a, b, 2, r, k);
+        } else {
+#pragma unroll
+          for (int j = 0; j < L; j++) r[j] = a[j] + b[j];
+        }
+        g16::cond_sub<L>(r, 2, k);
+        st<L>(s + e * E + off, r);  // X3, Y3, Z3 in slots 0-2
+      }
+    }
+    __syncwarp();
+  }
+}
+
 // Element slot of s <- digit (j, c) of point idx at src[(j D + c) stride +
 // idx] (the wrappers' limb-major planes), words t, t + LANES, ...
 template <int L, int D>
@@ -287,7 +398,23 @@ __device__ __forceinline__ int group_lane(uint32_t* smem, long long first, long 
   return live ? lane % G::LANES : -1;
 }
 
-template <int L, int D, int NR>
+// P2's infinity test of the mixed addition: Y2 all zero (the group's
+// lanes OR the words each loaded, then a ballot).  Returns t, or -1 where
+// the point's P2 is infinity (its lanes then idle and P1 passes through).
+template <int L, int D>
+__device__ __forceinline__ int finite_lane(const uint32_t* s, int t) {
+  using G = Group<L, D>;
+  uint32_t any = 0;
+  if (t >= 0)
+    for (int w = t; w < D * L; w += G::LANES) any |= s[Y2 * G::E + (w % D) * G::LP + w / D];
+  const unsigned nz = __ballot_sync(0xffffffffu, any != 0);
+  const int gp = (threadIdx.x % 32) / G::LANES;
+  return t >= 0 && ((nz >> (gp * G::LANES)) & ((1u << G::LANES) - 1)) ? t : -1;
+}
+
+// The full addition (MIXED false: K4, K5) or the mixed one (MIXED true,
+// z2 unused: K7), a lane group a point.
+template <int L, int D, int NR, bool MIXED>
 __global__ void __launch_bounds__(32 * kGroupWarps, 4)
     point_add_group_kernel(const uint32_t* __restrict__ x1, const uint32_t* __restrict__ y1,
                            const uint32_t* __restrict__ z1, const uint32_t* __restrict__ x2,
@@ -310,11 +437,18 @@ __global__ void __launch_bounds__(32 * kGroupWarps, 4)
     load_elem<L, D>(s + Z1 * G::E, z1, n, i, t);
     load_elem<L, D>(s + X2 * G::E, x2, n, i, t);
     load_elem<L, D>(s + Y2 * G::E, y2, n, i, t);
-    load_elem<L, D>(s + Z2 * G::E, z2, n, i, t);
+    if constexpr (!MIXED) load_elem<L, D>(s + Z2 * G::E, z2, n, i, t);
     load_b3<L, D>(s, t, k);
   }
   __syncwarp();
-  group_add<L, D, NR>(s, t, k);
+  if constexpr (MIXED) {
+    // a warp whose points' P2 are all infinity skips every product stage
+    // (for G2, one point a warp, the skip is the point's own)
+    const int tf = finite_lane<L, D>(s, t);
+    if (__any_sync(0xffffffffu, tf >= 0)) group_add_mixed<L, D, NR>(s, tf, k);
+  } else {
+    group_add<L, D, NR>(s, t, k);
+  }
   if (t >= 0) {
     store_elem<L, D>(x3, n, i, s + 0 * G::E, t);
     store_elem<L, D>(y3, n, i, s + 1 * G::E, t);
@@ -377,9 +511,9 @@ __global__ void __launch_bounds__(32 * kGroupWarps, 4)
 
 }  // namespace
 
-#if G16_MIXED
-// (x1, y1, z1) + affine (x2, y2), one thread a point (K6, K7).  Returns 0
-// or the CUDA error of the launch.
+#if G16_MIXED && G16_D == 1
+// (x1, y1, z1) + affine (x2, y2), one thread a point (K6).  Returns 0 or
+// the CUDA error of the launch.
 extern "C" int g16_point_add(const void* x1, const void* y1, const void* z1, const void* x2,
                              const void* y2, void* x3, void* y3, void* z3, long long n,
                              const void* consts, unsigned n0, void* stream) {
@@ -392,6 +526,21 @@ extern "C" int g16_point_add(const void* x1, const void* y1, const void* z1, con
           (const uint32_t*)consts, n0);
   return (int)cudaGetLastError();
 }
+#elif G16_MIXED
+// (x1, y1, z1) + affine (x2, y2) in the group form (K7).
+extern "C" int g16_point_add_mixed_group(const void* x1, const void* y1, const void* z1,
+                                         const void* x2, const void* y2, void* x3, void* y3,
+                                         void* z3, long long n, const void* consts, unsigned n0,
+                                         void* stream) {
+  constexpr int per_block = kGroupWarps * Group<G16_LIMBS, G16_D>::PER_WARP;
+  long long blocks = (n + per_block - 1) / per_block;
+  point_add_group_kernel<G16_LIMBS, G16_D, G16_NR, true>
+      <<<(unsigned)blocks, 32 * kGroupWarps, 0, (cudaStream_t)stream>>>(
+          (const uint32_t*)x1, (const uint32_t*)y1, (const uint32_t*)z1, (const uint32_t*)x2,
+          (const uint32_t*)y2, nullptr, (uint32_t*)x3, (uint32_t*)y3, (uint32_t*)z3, n,
+          (const uint32_t*)consts, n0);
+  return (int)cudaGetLastError();
+}
 #else
 // The full addition in the group form (K4, K5).
 extern "C" int g16_point_add_group(const void* x1, const void* y1, const void* z1,
@@ -400,7 +549,7 @@ extern "C" int g16_point_add_group(const void* x1, const void* y1, const void* z
                                    unsigned n0, void* stream) {
   constexpr int per_block = kGroupWarps * Group<G16_LIMBS, G16_D>::PER_WARP;
   long long blocks = (n + per_block - 1) / per_block;
-  point_add_group_kernel<G16_LIMBS, G16_D, G16_NR>
+  point_add_group_kernel<G16_LIMBS, G16_D, G16_NR, false>
       <<<(unsigned)blocks, 32 * kGroupWarps, 0, (cudaStream_t)stream>>>(
           (const uint32_t*)x1, (const uint32_t*)y1, (const uint32_t*)z1, (const uint32_t*)x2,
           (const uint32_t*)y2, (const uint32_t*)z2, (uint32_t*)x3, (uint32_t*)y3, (uint32_t*)z3,

@@ -13,11 +13,11 @@ Counterpart of `groth16_tpu/curves/pallas_point.py`:
 
 One CUDA kernel body per formula (csrc/point_add.cu: rcb_add<F>,
 rcb_add_mixed<F>) templated on the coordinate field.  The full addition
-(K4/K5) and the Horner chain run on a group of lanes per point (6 for G1,
-24 for G2), each of the formula's three product stages one product a
-lane: most launches of a prove carry a few points, where one addition's
-latency is the launch's time.  The mixed additions (K6/K7) run one
-thread per point.
+(K4/K5), the G2 mixed addition (K7) and the Horner chain run on a group
+of lanes per point (6 for G1, 24 for G2), each of the formula's three
+product stages one product a lane: most launches of a prove carry a few
+points, where one addition's latency is the launch's time.  The G1 mixed
+addition (K6) runs one thread per point.
 Coordinates are limb-major `int32[L, N]` (G1) or `int32[L, 2, N]` (G2),
 < 2p with exact digits in and out.
 
@@ -51,10 +51,13 @@ LAUNCHES = {
 }
 # calls of the plain versions on CUDA tensors (the main path makes none)
 PLAIN_CALLS = dict.fromkeys(LAUNCHES, 0)
-# the full additions' launches by points a launch, and the most points of
-# one launch
+# the additions' launches by points a launch, and the most points of one
+# launch
 SIZE_CLASSES = ("1-4", "5-4096", ">4096")
-LAUNCH_SIZES = {name: dict.fromkeys(SIZE_CLASSES, 0) for name in ("add_g1", "add_g2")}
+LAUNCH_SIZES = {
+    name: dict.fromkeys(SIZE_CLASSES, 0)
+    for name in ("add_g1", "add_g2", "add_mixed_g1", "add_mixed_g2")
+}
 LARGEST_LAUNCH = dict.fromkeys(LAUNCH_SIZES, 0)
 
 
@@ -75,8 +78,9 @@ def _lib(n_limbs: int, deg: int, mixed: bool, nr: int):
         P = ctypes.c_void_p
         tail = [ctypes.c_longlong, P, ctypes.c_uint, P]
         if mixed:
-            lib.g16_point_add.argtypes = [P] * 8 + tail
-            lib.g16_point_add.restype = ctypes.c_int
+            fn = lib.g16_point_add if deg == 1 else lib.g16_point_add_mixed_group
+            fn.argtypes = [P] * 8 + tail
+            fn.restype = ctypes.c_int
         else:
             lib.g16_point_add_group.argtypes = [P] * 9 + tail
             lib.g16_point_add_group.restype = ctypes.c_int
@@ -118,7 +122,10 @@ def _launch(name, mixed, spec, nr, b3_val, p1, p2):
     if n == 0:
         return tuple(outs)
     lib = _lib(L, D, mixed, 0 if nr is None else nr)
-    fn = lib.g16_point_add if mixed else lib.g16_point_add_group
+    if mixed:  # K6 one thread a point, K7 a lane group
+        fn = lib.g16_point_add if D == 1 else lib.g16_point_add_mixed_group
+    else:
+        fn = lib.g16_point_add_group
     consts = kernel_consts(spec, b3_val, dev)
     rc = fn(
         *[x.data_ptr() for x in ins], *[o.data_ptr() for o in outs], n, consts.data_ptr(),
@@ -127,9 +134,8 @@ def _launch(name, mixed, spec, nr, b3_val, p1, p2):
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
     LAUNCHES[name] += 1
-    if not mixed:
-        LAUNCH_SIZES[name][size_class(n)] += 1
-        LARGEST_LAUNCH[name] = max(LARGEST_LAUNCH[name], n)
+    LAUNCH_SIZES[name][size_class(n)] += 1
+    LARGEST_LAUNCH[name] = max(LARGEST_LAUNCH[name], n)
     return tuple(outs)
 
 

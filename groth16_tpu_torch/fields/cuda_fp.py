@@ -1,12 +1,16 @@
 """CUDA kernel K1 — the Montgomery product — and its plain version.
 
 Counterpart of `groth16_tpu/fields/pallas_fp.py:mont_mul_pallas`.  The
-kernel (csrc/mont_mul.cu) runs one thread per element over
-`uint32[L, N]` limb-major buffers: thread i reads column i of each limb
-row, so a warp's loads are coalesced.  It folds both inputs and runs the
-interleaved CIOS of `pallas_fp.cios` over 15-bit digits, so its output
-is digit-identical to `mont_mul_plain`, the int64 transcription of
-`fp._mont_mul_xla` kept here as its plain version.
+kernel (csrc/mont_mul.cu) runs over `uint32[L, N]` limb-major buffers,
+one or two neighbouring elements a thread (`elements_per_thread`), so a
+warp's loads are coalesced.  It resolves both inputs to exact digits, packs them into
+32-bit words and runs the Montgomery product with R = 2^(15 L) on the
+words (csrc/field.cuh: mont_mul_words): the same T = (a b + M p) / R as
+the 15-bit CIOS of `pallas_fp.cios`, so its output is digit-identical to
+`mont_mul_plain`, the int64 transcription of `fp._mont_mul_xla` kept
+here as its plain version.  Either operand may be `[L, h]` with h | n,
+read in place with period h (element i reads column i mod h): constants
+and the NTT's per-stage twiddles reach the kernel without a copy.
 
 `mont_mul` dispatches by device only: a CPU tensor runs the plain
 version, a CUDA tensor launches the kernel or raises.
@@ -50,15 +54,47 @@ def kernel_consts(spec: FpSpec, b3_val, device: torch.device) -> torch.Tensor:
     return torch.tensor(rows, dtype=torch.int32).reshape(-1).to(device)
 
 
+# 32-bit words an operand below 8p takes at each L with a kernel
+# (csrc/field.cuh: Words<L>::W)
+KERNEL_WORDS = {18: 9, 26: 12}
+# K1's launches by elements a launch, and those that read an operand with
+# a period h < n
+SIZE_CLASSES = ("1-4096", "4097-65536", ">65536")
+LAUNCH_SIZES = {"mont_mul": dict.fromkeys(SIZE_CLASSES + ("period",), 0)}
+LARGEST_LAUNCH = {"mont_mul": 0}
+
+
+def size_class(n: int) -> str:
+    return SIZE_CLASSES[0] if n <= 4096 else SIZE_CLASSES[1] if n <= 65536 else SIZE_CLASSES[2]
+
+
+def elements_per_thread(L: int, n: int) -> int:
+    """Elements a thread of a K1 launch of n elements; the wrapper takes
+    one where n or an operand's alignment does not allow two.  From
+    chip_smoke.py's sweep (PERF.md): one keeps the most warps in flight
+    where n is small; at L = 18 two (64-bit loads) are a few per cent
+    faster from 2^18 elements on."""
+    return 2 if L == 18 and n >= 1 << 18 else 1
+
+
+@functools.lru_cache(maxsize=None)
+def word_consts(spec: FpSpec):
+    """K1's launch constants: p as W words, then -p^-1 mod 2^32."""
+    W = KERNEL_WORDS[spec.n_limbs]
+    p = spec.modulus
+    if 8 * p > 1 << (32 * W):
+        raise ValueError(f"mont_mul: 8p does not fit in {W} words for L = {spec.n_limbs}")
+    words = [(p >> (32 * i)) & 0xFFFFFFFF for i in range(W)] + [(-pow(p, -1, 1 << 32)) % (1 << 32)]
+    return (ctypes.c_uint * len(words))(*words)
+
+
 def _lib():
     from groth16_tpu_torch.utils.cuda_build import library
 
     lib = library("mont_mul")
     if not getattr(lib, "_g16_typed", False):
-        P = ctypes.c_void_p
-        lib.g16_mont_mul.argtypes = [
-            ctypes.c_int, P, P, P, ctypes.c_longlong, P, ctypes.c_uint, P
-        ]
+        P, U = ctypes.c_void_p, ctypes.c_uint
+        lib.g16_mont_mul.argtypes = [ctypes.c_int, P, U, P, U, P, U, ctypes.POINTER(U), ctypes.c_int, P]
         lib.g16_mont_mul.restype = ctypes.c_int
         lib._g16_typed = True
     return lib
@@ -78,36 +114,67 @@ def check_operand(x: torch.Tensor, lead: tuple, n: int, name: str) -> torch.Tens
     return x
 
 
-def mont_mul(spec: FpSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a*b*R^-1 mod p on [L, N] (either operand may be [L, 1]).
-    Inputs any digit class with values < 8p; output exact digits < 2p."""
+def _check_period(x: torch.Tensor, L: int, n: int, name: str) -> int:
+    """K1's operand check: int32 [L, h] with h | n, contiguous; -> h."""
+    if x.dtype != torch.int32:
+        raise TypeError(f"{name}: expected int32 digits, got {x.dtype}")
+    h = x.shape[-1] if x.dim() == 2 else -1
+    if x.shape[0] != L or h < 0 or (h == 0) != (n == 0) or (h and n % h):
+        raise ValueError(f"{name}: expected [{L}, h] with h dividing {n}, got {tuple(x.shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name}: tensor is not contiguous")
+    return h
+
+
+def mont_mul(spec: FpSpec, a: torch.Tensor, b: torch.Tensor, n: int = None) -> torch.Tensor:
+    """a*b*R^-1 mod p on n elements: each operand [L, n], or [L, h] with
+    h | n read with period h (n defaults to the wider operand).  Inputs
+    any digit class with values < 8p; output [L, n], exact digits < 2p."""
+    if n is None:
+        n = max(a.shape[-1], b.shape[-1])
     if a.device.type == "cpu" and b.device.type == "cpu":
-        return mont_mul_plain(spec, a, b)
+        return mont_mul_plain(spec, a, b, n)
     if not (a.is_cuda and b.is_cuda and a.device == b.device):
         raise ValueError(f"mont_mul: operands on {a.device} and {b.device}")
     L = spec.n_limbs
     if L not in KERNEL_LIMBS:
         raise ValueError(f"mont_mul: no kernel for L = {L} (have {KERNEL_LIMBS})")
-    n = max(a.shape[-1], b.shape[-1])
-    a = check_operand(a, (L,), n, "a")
-    b = check_operand(b, (L,), n, "b")
+    if n >= 1 << 31:
+        raise ValueError(f"mont_mul: {n} elements, the kernel takes fewer than 2^31")
+    ha, hb = _check_period(a, L, n, "a"), _check_period(b, L, n, "b")
     out = torch.empty((L, n), dtype=torch.int32, device=a.device)
     if n == 0:
         return out
-    consts = kernel_consts(spec, None, a.device)
+    vec = elements_per_thread(L, n)
+    # two elements must divide n and sit 8-byte aligned in each operand
+    # they are loaded from together (one whose period is odd is read a
+    # column at a time)
+    if vec == 2 and (n % 2 or any(h % 2 == 0 and x.data_ptr() % 8 for x, h in ((a, ha), (b, hb)))):
+        vec = 1
     rc = _lib().g16_mont_mul(
-        L, a.data_ptr(), b.data_ptr(), out.data_ptr(), n, consts.data_ptr(),
-        spec.n0inv, torch.cuda.current_stream(a.device).cuda_stream,
+        L, a.data_ptr(), ha, b.data_ptr(), hb, out.data_ptr(), n, word_consts(spec), vec,
+        torch.cuda.current_stream(a.device).cuda_stream,
     )
     if rc != 0:
         raise RuntimeError(f"mont_mul kernel launch failed: CUDA error {rc}")
     LAUNCHES["mont_mul"] += 1
+    sizes = LAUNCH_SIZES["mont_mul"]
+    sizes[size_class(n)] += 1
+    sizes["period"] += min(ha, hb) < n
+    LARGEST_LAUNCH["mont_mul"] = max(LARGEST_LAUNCH["mont_mul"], n)
     return out
 
 
-def mont_mul_plain(spec: FpSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def _tile(x: torch.Tensor, n: int) -> torch.Tensor:
+    """[L, h] with h | n -> [L, n], column i = column i mod h."""
+    h = x.shape[-1]
+    return x if h == n else x.expand(x.shape[0], n) if h == 1 else x.repeat(1, n // h)
+
+
+def mont_mul_plain(spec: FpSpec, a: torch.Tensor, b: torch.Tensor, n: int = None) -> torch.Tensor:
     """Plain version of K1: the interleaved CIOS of fp._mont_mul_xla in
-    int64.  a, b: [L, N] or [L, 1]; runs on any device.
+    int64.  a, b: [L, n], or [L, h] with h | n read with period h (as
+    `mont_mul`); runs on any device.
 
     The uint32 original splits every partial product into its low and
     high 15 bits so that no column passes 2^23; int64 columns hold whole
@@ -121,9 +188,10 @@ def mont_mul_plain(spec: FpSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tens
         PLAIN_CALLS["mont_mul"] += 1
     L = spec.n_limbs
     M = LIMB_MASK
-    n = max(a.shape[-1], b.shape[-1])
-    a = fold(a).to(torch.int64).expand(L, n)
-    b = fold(b).to(torch.int64).expand(L, n)
+    if n is None:
+        n = max(a.shape[-1], b.shape[-1])
+    a = _tile(fold(a).to(torch.int64), n)
+    b = _tile(fold(b).to(torch.int64), n)
     p_vec = torch.tensor(spec.p_limbs, dtype=torch.int64, device=a.device)[:, None].expand(L, n)
     n0 = int(spec.n0inv)
     # acc[i : i + L + 1] is the (L+1)-column accumulator of step i: the

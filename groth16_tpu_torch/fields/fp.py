@@ -197,22 +197,25 @@ def mont_mul(spec: FpSpec, a: torch.Tensor, b: torch.Tensor, plain: bool = False
     Inputs: any digit class, values < 8p.  Output: exact digits < 2p.
     Batch shapes broadcast; the product runs on the flattened batch as
     one call of K1 (CUDA tensor) or of its plain version (CPU tensor, or
-    plain=True on any device)."""
+    plain=True on any device).  An operand whose batch shape, leading
+    ones dropped, is a suffix of the broadcast shape (a constant, or the
+    NTT's twiddles [.., 1, h] against [.., blocks, h]) goes as [L, h] and
+    is read with period h; only other broadcasts are materialised."""
     L = spec.n_limbs
     a, b = _align(a, b)
     batch = broadcast_shapes(a.shape[1:], b.shape[1:])
     n = math.prod(batch)
 
     def flat(x):
-        if math.prod(x.shape[1:]) == 1:
-            return x.reshape(L, 1)
+        own = tuple(x.shape[1:])
+        while own and own[0] == 1:
+            own = own[1:]
+        if own == batch[len(batch) - len(own):]:
+            return x.reshape(L, math.prod(own)).contiguous()
         return x.expand((L,) + tuple(batch)).reshape(L, n).contiguous()
 
     fn = cuda_fp.mont_mul_plain if plain else cuda_fp.mont_mul
-    out = fn(spec, flat(a), flat(b))
-    if out.shape[1] != n:
-        out = out.expand(L, n)
-    return out.reshape((L,) + tuple(batch))
+    return fn(spec, flat(a), flat(b), n).reshape((L,) + tuple(batch))
 
 
 def mul_const(spec: FpSpec, a: torch.Tensor, value: int) -> torch.Tensor:

@@ -32,17 +32,18 @@ _LIBS: Dict[str, Tuple[str, Tuple[str, ...]]] = {
 }
 
 
-# From this many digits on, the one-thread kernels (the mixed additions
-# K6/K7 and the scans K2/K3) call the Montgomery product instead of
-# inlining it (csrc/field.cuh: G16_OUTLINE_MUL): inlined, the L = 26
-# kernels take ptxas 12-15 minutes.  The group-form K4/K5 and the Horner
-# kernel inline it at every L: each has one call site.
+# From this many digits on, the one-thread kernels (the G1 mixed addition
+# K6 and the scans K2/K3) call the Montgomery product instead of inlining
+# it (csrc/field.cuh: G16_OUTLINE_MUL): inlined, the L = 26 kernels take
+# ptxas 12-15 minutes.  The group forms (K4, K5, K7) and the Horner kernel
+# inline it at every L: each has one call site.
 OUTLINE_MUL_MIN_LIMBS = 26
 
 
-def _formula_defines(n_limbs: int, deg: int, nr: int) -> Tuple[str, ...]:
+def _formula_defines(n_limbs: int, deg: int, nr: int, one_thread: bool) -> Tuple[str, ...]:
     defines = (f"-DG16_LIMBS={n_limbs}", f"-DG16_D={deg}", f"-DG16_NR={nr}")
-    return defines + (("-DG16_OUTLINE_MUL",) if n_limbs >= OUTLINE_MUL_MIN_LIMBS else ())
+    outline = one_thread and n_limbs >= OUTLINE_MUL_MIN_LIMBS
+    return defines + (("-DG16_OUTLINE_MUL",) if outline else ())
 
 
 def point_add_variant(n_limbs: int, deg: int, mixed: bool, nr: int = 0) -> str:
@@ -51,7 +52,8 @@ def point_add_variant(n_limbs: int, deg: int, mixed: bool, nr: int = 0) -> str:
     if deg == 1:
         nr = 0  # the G1 kernels never read it: one library for every curve
     name = f"point_add_L{n_limbs}_d{deg}_{'mixed' if mixed else 'full'}_nr{nr}".replace("-", "m")
-    _LIBS.setdefault(name, ("point_add.cu", _formula_defines(n_limbs, deg, nr) + (f"-DG16_MIXED={int(mixed)}",)))
+    defines = _formula_defines(n_limbs, deg, nr, one_thread=mixed and deg == 1)
+    _LIBS.setdefault(name, ("point_add.cu", defines + (f"-DG16_MIXED={int(mixed)}",)))
     return name
 
 
@@ -61,7 +63,7 @@ def suffix_scan_variant(n_limbs: int, deg: int, nr: int = 0) -> str:
     if deg == 1:
         nr = 0
     name = f"suffix_scan_L{n_limbs}_d{deg}_nr{nr}".replace("-", "m")
-    _LIBS.setdefault(name, ("suffix_scan.cu", _formula_defines(n_limbs, deg, nr)))
+    _LIBS.setdefault(name, ("suffix_scan.cu", _formula_defines(n_limbs, deg, nr, one_thread=True)))
     return name
 
 

@@ -62,6 +62,20 @@ def mont_mul_u32_ops(n_limbs: int) -> int:
     return 2 * n_limbs * n_limbs + n_limbs
 
 
+def mont_mul_word_ops(n_limbs: int) -> int:
+    """One Montgomery product on the word engine (K1, csrc/field.cuh:
+    mont_mul_words): W 32-bit words an operand, W rows of a_i * b and
+    FULL + 1 reduction rows of m * p (FULL = floor(15 L / 32) full steps
+    and the partial one), each row W products of two 32-bit multiplies
+    (low and high halves), and the m of each reduction row.  Packing and
+    carries left out, as in mont_mul_u32_ops."""
+    from groth16_tpu_torch.fields.cuda_fp import KERNEL_WORDS
+
+    W = KERNEL_WORDS[n_limbs]
+    full = 15 * n_limbs // 32
+    return 2 * W * W + (full + 1) * (2 * W + 1)
+
+
 def point_add_u32_ops(n_limbs: int, fp2: bool = False, mixed: bool = True) -> int:
     """One complete a = 0 point addition: 13 field products for the mixed
     (projective + affine) one, 12 for the full one, each 4 base-field

@@ -58,26 +58,47 @@ def _lazy_digits(values, L, rng):
     return torch.from_numpy(d.astype(np.int32))
 
 
+def _at_limit_digits(values, L):
+    """int32[L, N] digits of `values` with the most each digit can take
+    moved down from the next (digits near 2^27)."""
+    d = np.array([[(v >> (15 * i)) & 0x7FFF for v in values] for i in range(L)], np.int64)
+    for i in range(L - 1):
+        r = np.minimum((1 << 12) - 1, d[i + 1])
+        d[i] += r << 15
+        d[i + 1] -= r
+    return torch.from_numpy(d.astype(np.int32))
+
+
+@pytest.mark.parametrize(
+    "n,periods", [(1, [1]), (3, [1]), (4097, [1, 17]), (3 << 14, [1, 3, 1 << 14]), ((1 << 16) + 3, [1])]
+)
 @pytest.mark.parametrize("curve,field", [("bn254", "p"), ("bn254", "r"), ("bls12_381", "p")])
-def test_mont_mul_kernel_matches_plain(dev, curve, field):
+def test_mont_mul_kernel_matches_plain(dev, curve, field, n, periods, monkeypatch):
+    """K1 (32-bit words) at n elements, L = 18 and 26, at one and two
+    elements a thread (an odd n runs one): lazy and at-limit (just below
+    8p, digits near 2^27) inputs; full operands and [L, h] period
+    operands on either side (h = 3 splits a pair), each digit-equal to
+    the plain version and counted once."""
     modulus = getattr(get_curve(curve), field)
     spec = make_spec(modulus)
-    r = random.Random(1)
-    n = 1000  # not a multiple of the block: the kernel masks its ragged edge
+    L = spec.n_limbs
+    r = random.Random(n)
     rng = np.random.default_rng(2)
-    vals_a = [r.randrange(8 * modulus) for _ in range(n - 2)] + [0, 8 * modulus - 1]
-    vals_b = [r.randrange(8 * modulus) for _ in range(n)]
-    a = _lazy_digits(vals_a, spec.n_limbs, rng).to(dev)
-    b = _lazy_digits(vals_b, spec.n_limbs, rng).to(dev)
-    before = cuda_fp.LAUNCHES["mont_mul"]
-    got = cuda_fp.mont_mul(spec, a, b)
-    torch.cuda.synchronize()
-    assert cuda_fp.LAUNCHES["mont_mul"] == before + 1
-    assert torch.equal(got, cuda_fp.mont_mul_plain(spec, a, b))
-    # a [L, 1] operand broadcasts
-    one = torch.tensor(int_to_limbs(spec.to_mont_int(5), spec.n_limbs), dtype=torch.int32)
-    one = one[:, None].to(dev)
-    assert torch.equal(cuda_fp.mont_mul(spec, a, one), cuda_fp.mont_mul_plain(spec, a, one))
+    vals_a = ([0, 1, modulus - 1, 8 * modulus - 1] + [r.randrange(8 * modulus) for _ in range(n)])[:n]
+    vals_b = ([8 * modulus - 1] * 4 + [r.randrange(8 * modulus) for _ in range(n)])[:n]
+    a = _lazy_digits(vals_a, L, rng).to(dev)
+    b = _at_limit_digits(vals_b, L).to(dev)
+    cases = [(a, b)]
+    for h in periods:
+        cases += [(a, b[:, :h].contiguous()), (b[:, :h].contiguous(), a)]
+    for vec in (1, 2):
+        monkeypatch.setattr(cuda_fp, "elements_per_thread", lambda L_, n_: vec)
+        for x, y in cases:
+            before = cuda_fp.LAUNCHES["mont_mul"]
+            got = cuda_fp.mont_mul(spec, x, y, n)
+            torch.cuda.synchronize()
+            assert cuda_fp.LAUNCHES["mont_mul"] == before + 1
+            assert torch.equal(got, cuda_fp.mont_mul_plain(spec, x, y, n))
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(dev):
@@ -91,6 +112,8 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
         cuda_fp.mont_mul(spec, a, a.cpu())
     with pytest.raises(ValueError):
         cuda_fp.mont_mul(make_spec(get_curve("bls12_377").r), a[:17], a[:17])
+    with pytest.raises(ValueError):  # a period that does not divide n
+        cuda_fp.mont_mul(spec, a, a[:, :5].contiguous())
 
 
 def _batches(curve, g2, n, seed):
@@ -174,6 +197,37 @@ def test_point_add_sizes_match_plain(dev, curve, group, n):
     assert (cuda_point.LAUNCHES[name], cuda_point.LAUNCH_SIZES[name][size]) == (before[0] + 1, before[1] + 1)
     for x, y in zip(got, plain):
         assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("n", [1, 3, 33, 4096 + 5])
+@pytest.mark.parametrize("curve", ["bn254", "bls12_381"])
+def test_mixed_add_g2_group_form_matches_plain(dev, curve, n):
+    """K7 (a lane group a point) at n points: a projective left operand
+    (Z != 1) plus an affine one with infinity rows ((0, 0), every fifth
+    and the last) mixed in, and P + P, P + (-P) and inf + P; digit-equal
+    to the plain version, the exact sums, counted on the launch counter
+    and the size class."""
+    c = get_curve(curve)
+    lhs, rhs, add = _batches(curve, True, max(n, 5), seed=7)
+    rhs = [None if i % 5 == 4 else q for i, q in enumerate(rhs)]
+    if n < 5:
+        lhs, rhs = lhs[-5:][:n], rhs[-5:][:n]
+    lhs, rhs = lhs[:n], rhs[:n]
+    g = codec.g2_ops(c)
+    p1 = codec.g2_to_device(c, lhs, "cpu")
+    p1 = tuple(x.to(dev) for x in g.add(p1, g.infinity(g.batch_shape(p1))))  # Z != 1
+    inf = torch.tensor([q is None for q in rhs], device=dev)
+    xy2 = tuple(torch.where(inf, torch.zeros_like(x), x) for x in codec.g2_to_device(c, rhs, dev)[:2])
+    plain = cuda_point.mixed_add_plain(cuda_point._plain_ops(g.k.spec, g.k.nr_int), g.b3_val, p1, xy2)
+    size = cuda_point.size_class(n)
+    before = (cuda_point.LAUNCHES["add_mixed_g2"], cuda_point.LAUNCH_SIZES["add_mixed_g2"][size])
+    got = g.add_affine(p1, xy2)
+    torch.cuda.synchronize()
+    after = (cuda_point.LAUNCHES["add_mixed_g2"], cuda_point.LAUNCH_SIZES["add_mixed_g2"][size])
+    assert after == (before[0] + 1, before[1] + 1)
+    for x, y in zip(got, plain):
+        assert torch.equal(x, y)
+    assert codec.g2_from_device(c, g, got) == [add(x, y) for x, y in zip(lhs, rhs)]
 
 
 @pytest.mark.parametrize("curve,c,windows,lanes", [("bn254", 12, 22, 3), ("bls12_381", 16, 16, 1)])

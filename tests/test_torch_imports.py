@@ -1,5 +1,6 @@
-"""The port stands alone: no module of groth16_tpu_torch, and not
-chip_smoke.py, imports jax or the JAX package groth16_tpu."""
+"""The port stands alone: no module of groth16_tpu_torch, and neither
+chip_smoke.py nor chip_ab.py, imports jax or the JAX package
+groth16_tpu."""
 
 import ast
 import os
@@ -11,7 +12,7 @@ FORBIDDEN = ("jax", "groth16_tpu")
 
 
 def _sources():
-    out = [os.path.join(ROOT, "chip_smoke.py")]
+    out = [os.path.join(ROOT, name) for name in ("chip_smoke.py", "chip_ab.py")]
     for dirpath, _, files in os.walk(os.path.join(ROOT, "groth16_tpu_torch")):
         out += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
     return sorted(out)
@@ -35,7 +36,7 @@ def test_no_jax_imports(path):
 
 def test_scan_sees_the_package():
     names = {os.path.relpath(p, ROOT) for p in _sources()}
-    assert "chip_smoke.py" in names
+    assert {"chip_smoke.py", "chip_ab.py"} <= names
     for module in (
         ("protocol", "prover_torch.py"),
         ("protocol", "generator_torch.py"),
