@@ -17,13 +17,17 @@ package's public functions, so each checkout runs its own path):
                  h = 1: a constant): device time of one call, calls queued
                  behind a spin kernel (the host's launch gaps drop out);
   mixed g2 n     the mixed addition (add_affine: K7 for G2, K6 for G1) of
-                 n key points, queued the same way;
+                 n key points, queued the same way (K6 at L = 18 on the
+                 2^16 bn254 key's points and at L = 26 on the 2^20
+                 bls12_381 key's, also at the points of the capture
+                 proves' K6 launches);
   sass           instruction counts of the mixed additions' kernels;
   prove log_n    steady prove_encoded_host wall times of the bn254 2^16
                  and bls12_381 2^20 DummyCircuits (chip_smoke.py's), in
                  PROVE_ROUNDS rounds of turns;
   profile log_n  one steady prove under torch.profiler: device time by
-                 kernel name (at 2^16 also on the capture scan, K6/K7).
+                 kernel name, in turns (also on the capture scan, K6/K7,
+                 at both sizes).
 
 One JSON line per measurement and worker, then the card's name and power
 limit.  Needs one CUDA card and nvcc; exits non-zero without them.
@@ -44,9 +48,12 @@ REPS_QUEUED = 20
 K1_CASES = [(18, 15, None), (18, 16, None), (18, 19, None), (18, 20, None), (26, 16, None),
             (26, 20, None), (18, 19, 512), (18, 16, 1), (26, 20, 1)]
 K7_N = (1, 4096, 1 << 16, 1 << 17)
-K6_N = (1, 4096, 1 << 16)
-# the libraries of the mixed additions (K6, K7) whose SASS is compared
-SASS_LIBS = ("point_add_L18_d1_mixed_nr0", "point_add_L18_d2_mixed_nrm1")
+# K6: also the points of the capture proves' launches (2^16 bn254:
+# 118,784 and 393,216; 2^20 bls12_381: 28,672 and 73,728)
+K6_N = (1, 4096, 28672, 1 << 16, 73728, 118784, 393216, 1 << 20)
+# the libraries of the mixed additions (K6 at both L, K7) whose SASS is
+# compared
+SASS_LIBS = ("point_add_L18_d1_mixed_nr0", "point_add_L26_d1_mixed_nr0", "point_add_L18_d2_mixed_nrm1")
 PROVES, PROVE_ROUNDS = 4, 3
 
 
@@ -187,21 +194,22 @@ class Worker:
                                   text=True, check=True, timeout=300).stdout
             fn = None
             for line in sass.splitlines():
-                m = re.search(r"Function : \S*?((?:point_add|point_add_group|mont_mul)_kernel)", line)
+                m = re.search(r"Function : \S*?((?:point_add_words|point_add_group|point_add|mont_mul)_kernel)"
+                              r"(I(?:L[a-z]n?\d+E)+)?", line)
                 if m:
-                    fn = out.setdefault(f"{name}:{m.group(1)}", {})
+                    fn = out.setdefault(f"{name}:{m.group(1)}{m.group(2) or ''}", {})
                     continue
                 m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[0-9T]+\s+)?([A-Z][A-Z0-9_.]*)", line)
                 if m and fn is not None:
                     fn[m.group(1)] = fn.get(m.group(1), 0) + 1
         return {k: {"instructions": sum(v.values()), "by_op": v} for k, v in out.items()}
 
-    def mixed(self, g2, n):
+    def mixed(self, g2, n, log_n=16):
         import torch
 
         from groth16_tpu_torch.curves import codec
 
-        c, prover, _, _ = self.keys[16]
+        c, prover, _, _ = self.keys[log_n]
         g = codec.g2_ops(c) if g2 else codec.g1_ops(c)
         src = prover.dpk.b_g2_tail if g2 else tuple(x[..., 0, :] for x in prover.dpk.g1_groups[-1])
         finite = torch.nonzero(~g.is_infinity(src)).reshape(-1)
@@ -294,15 +302,18 @@ def main():
         for _ in range(PROVE_ROUNDS):
             turns(op="prove", log_n=16, k=PROVES)
         for fused in (True, False):
-            for who in ("other", "this"):
+            for who in ("other", "this", "this", "other"):
                 send(who, op="profile", log_n=16, fused=fused)
                 print(json.dumps({"profile16": who, "fused": fused, **recv(who)}), flush=True)
         both(op="setup", curve="bls12_381", log_n=20, device_setup=True, seed=0xB15)
+        for n in K6_N:
+            turns(op="mixed", g2=False, n=n, log_n=20)
         for _ in range(PROVE_ROUNDS):
             turns(op="prove", log_n=20, k=PROVES // 2)
-        for who in ("other", "this"):
-            send(who, op="profile", log_n=20)
-            print(json.dumps({"profile20": who, **recv(who)}), flush=True)
+        for fused in (True, False):
+            for who in ("other", "this", "this", "other"):
+                send(who, op="profile", log_n=20, fused=fused)
+                print(json.dumps({"profile20": who, "fused": fused, **recv(who)}), flush=True)
         print(smi("name,power.limit"), flush=True)
     finally:
         for p in procs.values():

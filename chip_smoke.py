@@ -10,7 +10,8 @@ Phases, each printing one JSON line:
   card      the card, torch and CUDA versions; builds every CUDA kernel of
             the bn254 and bls12_381 proves and setups and the op-rate
             microbenchmark from groth16_tpu_torch/csrc (one nvcc per library,
-            all started together) with its registers and spills;
+            all started together) with its registers and spills (K1's, K6's
+            and K7's on a line of their own);
   ubench    kernel V (the op-rate microbenchmark) for its seven operations at
             N = 2^20, R = 2048, each held against its plain version (at R = 16
             and at R = 2048) and timed, with the SASS each compiled to and the
@@ -35,7 +36,9 @@ Phases, each printing one JSON line:
             plain version at ADD_CHECK_N points and timed over ADD_SWEEP_N
             (launches queued behind a spin kernel, so that the host's
             launch gaps drop out) beside the launch floor (an empty
-            kernel);
+            kernel); K6 and K7 the same way, and K6 in each of its two
+            forms (the word kernel at two occupancies) timed at 2^16-2^20
+            points in rounds of turns;
   reference the prove of a 2^6 DummyCircuit on the card against the exact
             prover, coordinate for coordinate;
   main_path TorchProver(pk, matrices) on cuda with the default fused MSM
@@ -50,8 +53,10 @@ Phases, each printing one JSON line:
   capture_path  the same prover with msm_fused_scan=False, counters set to
             0 just before and read just after one prove (K6 and K7 must have
             launched), then one under torch.profiler; both proofs must equal
-            the main path's for the same r and s; K7 held against its plain
-            version at the most points of one of its launches there;
+            the main path's for the same r and s; K6 and K7 held against
+            their plain versions at the most points of one of their
+            launches there, and K6's two forms timed at the points of each
+            of its launches there;
   device_setup  protocol.generator_torch.setup_device of the same 2^16 bn254
             circuit with the same seed, counters set to 0 just before and read
             just after (K1, K4, K5 must launch): its key must equal the exact
@@ -59,10 +64,10 @@ Phases, each printing one JSON line:
   bls12_381_2p20  the reference's own bench size: the bls12_381 DummyCircuit
             with a 2^20 domain set up on the device, 64 sampled points of each
             query recomputed on the host from the scalars the device built,
-            the L = 26 builds of K4/K5 (the checks and the sweep of the
-            kernels phase), of the Horner kernel and of K2/K3 (at this
-            prove's shapes, every step, and timed over the S sweep
-            SCAN_SWEEP) against their plain versions,
+            the L = 26 builds of K4-K7 (K4, K5 and K6 with the checks and
+            the sweep of the kernels phase, K6's forms too), of the Horner
+            kernel and of K2/K3 (at this prove's shapes, every step, and
+            timed over the S sweep SCAN_SWEEP) against their plain versions,
             then TorchProver on cuda: one prove with the counters set to 0 just
             before and read just after (K1-K5 and the Horner kernels must
             launch, no plain version on the card; K4/K5's launches by points
@@ -71,7 +76,12 @@ Phases, each printing one JSON line:
             launches), 2 steady prove_encoded_host
             calls, the last one phase-timed, and one under torch.profiler
             (the busy share, and the device time of each of the port's
-            kernels); every proof must verify
+            kernels), the proves over the segment sweep, then the capture
+            scan on the same key with the first prove's r and s (counted,
+            phase-timed and profiled, its proofs equal to the fused one, K6
+            and K7 held against their plain versions at its widest
+            launches, K6's two forms timed at the points of each of its
+            launches); every proof must verify
             with public input 15 and fail with 16.
 
 Then the `kernels` line (every kernel with its launches on each path), the
@@ -202,15 +212,11 @@ def phase_card():
     from groth16_tpu_torch.fields.spec import make_spec
     from groth16_tpu_torch.utils import cuda_build
 
-    c, cb = get_curve(CURVE), get_curve(BLS_CURVE)
-    bls = cuda_build.curve_variants(make_spec(cb.p).n_limbs, cb.fp2_nonresidue)
-    # the capture-scan path (K6/K7) runs on bn254 only; K7's L = 26
-    # library is built for its registers and build time
-    names = (
-        cuda_build.curve_variants(make_spec(c.p).n_limbs, c.fp2_nonresidue)
-        + [n for n in bls if "_mixed_" not in n or "_d2_" in n]
-        + ["ubench_ops"]
-    )
+    names = [
+        name
+        for c in (get_curve(CURVE), get_curve(BLS_CURVE))
+        for name in cuda_build.curve_variants(make_spec(c.p).n_limbs, c.fp2_nonresidue)
+    ] + ["ubench_ops"]
     t0 = time.time()
     reports = cuda_build.build(dict.fromkeys(names))
     emit({
@@ -226,12 +232,23 @@ def phase_card():
             for n, r in reports.items()
         },
     })
-    # K1 (each L and vector width) and K7 (the mixed G2 group form)
-    emit({"phase": "card", "k1_k7_ptxas": {
-        re.sub(r".*?((?:mont_mul|point_add_group)_kernel)ILi(\d+)ELi(-?\d+)E.*", r"\1<\2, \3>", k): v
-        for n, r in reports.items() if n == "mont_mul" or ("_d2_mixed_" in n)
+    # K1 (each L and vector width), K6 (its two forms) and K7 (the mixed
+    # G2 group form), at both L
+    emit({"phase": "card", "k1_k6_k7_ptxas": {
+        kernel_name(k): v
+        for n, r in reports.items() if n == "mont_mul" or "_mixed_" in n
         for k, v in ptxas_summary(r["ptxas"]).items()
     }})
+
+
+def kernel_name(mangled: str) -> str:
+    """"point_add_group_kernel<18, 1, 0, 1, 0>" from a kernel's mangled
+    name (template arguments in order; bools as 0 and 1)."""
+    m = re.search(r"((?:mont_mul|point_add_group|point_add_words)_kernel)I((?:L[a-z]n?\d+E)+)E", mangled)
+    if not m:
+        return mangled
+    args = [a.replace("n", "-") for a in re.findall(r"L[a-z](n?\d+)E", m.group(2))]
+    return f"{m.group(1)}<{', '.join(args)}>"
 
 
 def sass_families(path: str) -> dict:
@@ -479,7 +496,8 @@ def phase_kernels(pk, matrices, device):
     # K4-K7 on bn254 G1 / G2 with the proving key's own points
     dpk = upload_proving_key(pk, matrices, device)
     entries.update(_point_kernels(dpk, c, n, device, mixed=(False, True)))
-    _add_sweep(lambda g: _key_points(dpk, g), c, device, ("add_g1", "add_g2", "add_mixed_g2"))
+    _add_sweep(lambda g: _key_points(dpk, g), c, device, ("add_g1", "add_g2", "add_mixed_g1", "add_mixed_g2"))
+    _k6_forms(lambda g: _key_points(dpk, g), c, device)
     entries.update(_horner_kernels(_prove_horner_shapes(dpk), c, device))
     entries.update(_scan_kernels(dpk, c, rng, device))
     return entries
@@ -607,7 +625,7 @@ def _point_kernels(dpk, c, n, device, mixed):
 
     from groth16_tpu_torch.curves import codec, cuda_point
     from groth16_tpu_torch.fields.spec import make_spec
-    from groth16_tpu_torch.utils.profiling import point_add_u32_ops
+    from groth16_tpu_torch.utils.profiling import point_add_u32_ops, point_add_word_ops
 
     L = make_spec(c.p).n_limbs
     entries = {}
@@ -635,9 +653,14 @@ def _point_kernels(dpk, c, n, device, mixed):
             raise AssertionError(f"{tag} {name} on {c.name}: kernel and plain version disagree")
         _check_special_lanes(g, got)
         ms, plain_ms = queued_ms(run)[0], time_ms(run_plain)
+        digit_bound = bound(nbytes, live * point_add_u32_ops(L, g2, mixed=is_mixed))
         row = {"kernel": f"{tag} {name}", "curve": c.name, "n": n, "live": live, "tolerance": 0,
-               "max_abs_err": max_abs_err(got, want), "ms": ms, "plain_ms": plain_ms,
-               **bound(nbytes, live * point_add_u32_ops(L, g2, mixed=is_mixed))}
+               "max_abs_err": max_abs_err(got, want), "ms": ms, "plain_ms": plain_ms, **digit_bound}
+        if name == "add_mixed_g1":
+            # K6 runs on 32-bit words: its operations bound counts word
+            # products; the 15-bit count's bound beside it
+            row.update(bound(nbytes, live * point_add_word_ops(L)),
+                       bound_15bit_ms=digit_bound["bound_ms"], bound_15bit_by=digit_bound["bound_by"])
         emit({"phase": "kernels", **row})
         entries[name] = {
             "name": name, "route": "cuda", "source": "groth16_tpu_torch/csrc/point_add.cu",
@@ -669,7 +692,7 @@ def _add_run(name, g, mixed, src, n, device):
 
 def _check_adds(src_of, c, device, sizes):
     """Each point-add kernel named in `sizes` (add_g1, add_g2,
-    add_mixed_g2) on curve c held digit for digit against its plain
+    add_mixed_g1, add_mixed_g2) on curve c held digit for digit against its plain
     version at each of sizes[name] points (the special lanes where
     n >= 4); src_of(g): the points the inputs come from.  Returns
     `sizes`."""
@@ -715,6 +738,80 @@ def _add_sweep(src_of, c, device, names):
               "ms_by_n": sweep, "queued_before_spin_ended": queued,
               "launch_floor_ms": floor_ms, "launch_floor_single_event_ms": time_ms(sleep0),
               "card": card_line()})
+
+
+# points a launch at which K6's two forms are timed in the kernels and
+# bls12_381_2p20 phases (the capture proves time them at their own launch
+# sizes), and the rounds of turns
+K6_FORM_N = (1 << 16, 1 << 17, 1 << 18, 1 << 20)
+K6_FORM_ROUNDS = 3
+
+
+def _k6_forms(src_of, c, device, sizes=None, check=True):
+    """K6 in each of its forms (cuda_point.MIXED_G1_FORMS: the word
+    kernel at its natural and at a forced occupancy), held against the
+    plain version at 2^16 points where `check`, then timed (queued_ms) at
+    each of `sizes` points (K6_FORM_N) in K6_FORM_ROUNDS rounds of turns, beside the
+    word and the 15-bit bounds; the points a wave of each form holds on
+    the card, the wrapper's form at each size (mixed_g1_form) and whether
+    it had the least median time are printed beside them."""
+    import torch
+
+    from groth16_tpu_torch.curves import codec, cuda_point
+    from groth16_tpu_torch.fields.spec import make_spec
+    from groth16_tpu_torch.utils.profiling import point_add_u32_ops, point_add_word_ops
+
+    g, L = codec.g1_ops(c), make_spec(c.p).n_limbs
+    sizes = K6_FORM_N if sizes is None else sizes
+    src, chosen = src_of(g), cuda_point.mixed_g1_form
+    wave = cuda_point.mixed_g1_waves(L, torch.device(device))
+    ms, bounds, kept = {f: {} for f in cuda_point.MIXED_G1_FORMS}, {}, {}
+    try:
+        for n in sizes:
+            run, run_plain = _add_run("add_mixed_g1", g, True, src, n, device)
+            want = run_plain() if check and n == 1 << 16 else None
+            for form in cuda_point.MIXED_G1_FORMS:
+                cuda_point.mixed_g1_form = lambda n_, w_, f=form: f  # noqa: E731
+                if want is not None:
+                    got = run()
+                    torch.cuda.synchronize()
+                    if not all(torch.equal(x, y) for x, y in zip(got, want)):
+                        raise AssertionError(f"K6 form {form} on {c.name} at n = {n}: differs from the plain version")
+                ms[form][n] = []
+            del want
+            for _ in range(K6_FORM_ROUNDS):
+                for form in cuda_point.MIXED_G1_FORMS:
+                    cuda_point.mixed_g1_form = lambda n_, w_, f=form: f  # noqa: E731
+                    ms[form][n].append(queued_ms(run)[0])
+            fastest = min(ms, key=lambda f: statistics.median(ms[f][n]))
+            kept[n] = {"form": chosen(n, wave), "fastest_by_median": fastest}
+            nbytes = 8 * L * 4 * n
+            bounds[n] = {"words": bound(nbytes, n * point_add_word_ops(L)),
+                         "15bit": bound(nbytes, n * point_add_u32_ops(L))}
+    finally:
+        cuda_point.mixed_g1_form = chosen
+    emit({"phase": "kernels", "kernel": "K6 add_mixed_g1 forms", "curve": c.name, "L": L,
+          "digit_equal_at_n": 1 << 16 if check else None, "tolerance": 0,
+          "points_a_wave": wave, "ms_by_form_and_n": ms, "kept_form_by_n": kept,
+          "bounds_by_n": bounds, "card": card_line()})
+
+
+def _recording_k6_sizes(prove):
+    """prove(), and K6's launches by points a launch while it ran (the
+    wrapper asks mixed_g1_form once a launch)."""
+    from groth16_tpu_torch.curves import cuda_point
+
+    chosen, seen = cuda_point.mixed_g1_form, {}
+
+    def record(n, wave):
+        seen[n] = seen.get(n, 0) + 1
+        return chosen(n, wave)
+
+    cuda_point.mixed_g1_form = record
+    try:
+        return prove(), dict(sorted(seen.items()))
+    finally:
+        cuda_point.mixed_g1_form = chosen
 
 
 def _horner_sums(g, src, lanes, W, device):
@@ -937,7 +1034,7 @@ def _scan_kernels(dpk, c, rng, device):
 
 # the device name of a prove's kernel from csrc/ (the profiler's demangled
 # name: "void (anonymous namespace)::point_add_group_kernel<26, 1, 0>(...)")
-PORT_KERNEL = r"void \(anonymous namespace\)::((?:mont_mul|point_add|point_add_group|horner|suffix_scan)_kernel<[^>]*>)"
+PORT_KERNEL = r"void \(anonymous namespace\)::((?:mont_mul|point_add_words|point_add_group|horner|suffix_scan)_kernel<[^>]*>)"
 
 
 def profile_prove(prove) -> dict:
@@ -1137,9 +1234,9 @@ def phase_main_path(pk, vk, cs, rng, device):
 
 def phase_capture_path(prover, cs, first):
     """One prove with the capture-scan MSM path (K6/K7 steps); its proof
-    must equal the main path's for the same r and s.  K7 is then held
-    against its plain version at the most points of one of its launches
-    in that prove."""
+    must equal the main path's for the same r and s.  K6 and K7 are then
+    held against their plain versions at the most points of one of their
+    launches in that prove."""
     import torch
 
     from groth16_tpu_torch.config import configure
@@ -1152,7 +1249,7 @@ def phase_capture_path(prover, cs, first):
     with configure(msm_fused_scan=False):
         zero_counts()
         t0 = time.time()
-        got = prover.prove(z, r, s, timer=timer)
+        got, k6_sizes = _recording_k6_sizes(lambda: prover.prove(z, r, s, timer=timer))
         torch.cuda.synchronize()
         wall = time.time() - t0
         launches = read_counts(CAPTURE_KERNELS)
@@ -1163,13 +1260,16 @@ def phase_capture_path(prover, cs, first):
     for proof in (got, steady):
         if (proof.a, proof.b, proof.c) != (want.a, want.b, want.c):
             raise AssertionError("the capture-scan proof differs from the fused-scan proof")
-    widest = {"add_mixed_g2": [sizes["add_mixed_g2"]["largest"]]}
-    _check_adds(lambda g: _key_points(prover.dpk, g), get_curve(CURVE), prover.device, widest)
+    widest = {k: [sizes[k]["largest"]] for k in ("add_mixed_g1", "add_mixed_g2")}
+    src_of = lambda g: _key_points(prover.dpk, g)  # noqa: E731
+    _check_adds(src_of, get_curve(CURVE), prover.device, widest)
     emit({
         "phase": "capture_path", "msm_scan": "capture", "prove_s": wall, "phases_s": timer.as_dict(),
         "launches_per_prove": launches, "launches_by_size": sizes, "equal_to_main_path_proof": True,
-        "k7_digit_equal_at_n": widest["add_mixed_g2"], "profile": prof,
+        "k6_k7_digit_equal_at_n": widest, "k6_launches_by_points": k6_sizes, "profile": prof,
     })
+    # K6's two forms at the points of this prove's launches
+    _k6_forms(src_of, get_curve(CURVE), prover.device, sizes=list(k6_sizes), check=False)
     return launches
 
 
@@ -1253,8 +1353,9 @@ def _step(out: dict, name: str):
 
 def phase_bls(device):
     """The 2^20 bls12_381 DummyCircuit: device setup, sampled key check,
-    TorchProver on cuda (one counted prove, 2 steady ones), verify.
-    Returns the prove's launches and the L = 26 kernel checks."""
+    TorchProver on cuda (one counted prove, 2 steady ones, the capture
+    scan), verify.  Returns the launches of the fused and the capture
+    prove by path, and the L = 26 kernel checks."""
     import numpy as np
     import torch
 
@@ -1299,15 +1400,17 @@ def phase_bls(device):
     prover = TorchProver(pk, matrices)
     out["pk_upload_s"] = time.time() - t0
     _step(out, "upload")
-    # the L = 26 builds of K4/K5 at N = 2^16 and of K2/K3 at this prove's
+    # the L = 26 builds of K4-K7 at N = 2^16 and of K2/K3 at this prove's
     # rows, steps and chunks, against their plain version
     krng = np.random.default_rng(0xB17)
-    rows = {**_point_kernels(prover.dpk, c, N_KERNEL, device, mixed=(False,)),
+    rows = {**_point_kernels(prover.dpk, c, N_KERNEL, device, mixed=(False, True)),
             **_horner_kernels(_prove_horner_shapes(prover.dpk), c, device),
             **_scan_kernels(prover.dpk, c, krng, device)}
-    _add_sweep(lambda g: _key_points(prover.dpk, g), c, device, ("add_g1", "add_g2"))
+    _add_sweep(lambda g: _key_points(prover.dpk, g), c, device, ("add_g1", "add_g2", "add_mixed_g1"))
+    _k6_forms(lambda g: _key_points(prover.dpk, g), c, device)
     rng = Rng(0xB16)
     r, s = rng.field_element(c.r), rng.field_element(c.r)
+    first = (r, s)
     # the proves' peak (the key stays resident), not the kernel checks'
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
@@ -1360,6 +1463,8 @@ def phase_bls(device):
     out["steady_prove_s_by_segment_steps"] = by_steps
     out["card"] = card_line()
     _step(out, "prove")
+    capture, capture_proofs = _bls_capture(out, prover, z_enc, first, proofs[0], c, device)
+    proofs += capture_proofs
     t0 = time.time()
     pvk = prepare_verifying_key(vk)
     out["prepare_vk_s"] = time.time() - t0
@@ -1373,7 +1478,52 @@ def phase_bls(device):
     out.update(proofs_verified=len(proofs), wrong_input_rejected=True)
     out.pop("_seen")
     emit(out)
-    return launches, rows
+    return {"bls12_381_2p20": launches, "bls12_381_2p20_capture": capture}, rows
+
+
+def _bls_capture(out, prover, z_enc, first, want, c, device):
+    """The 2^20 prove on the capture scan (K6/K7 a step) with the first
+    fused prove's r and s: one counted and phase-timed, one under
+    torch.profiler; both proofs must equal the fused one.  K6 and K7 are
+    then held against their plain versions at the most points of one of
+    their launches.  Returns the launches and the two proofs."""
+    import torch
+
+    from groth16_tpu_torch.config import configure
+    from groth16_tpu_torch.utils.profiling import PhaseTimer
+
+    r, s = first
+    timer = PhaseTimer(verbose=False, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    with configure(msm_fused_scan=False):
+        zero_counts()
+        t0 = time.time()
+        proof, k6_sizes = _recording_k6_sizes(lambda: prover.prove_encoded_host(z_enc, r, s, timer=timer))
+        proofs = [proof]
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = read_counts(CAPTURE_KERNELS)
+        sizes = launch_sizes()
+        proof, prof = profile_prove(lambda: prover.prove_encoded_host(z_enc, r, s))
+    proofs.append(proof)
+    for p in proofs:
+        if (p.a, p.b, p.c) != (want.a, want.b, want.c):
+            raise AssertionError("the 2^20 capture-scan proof differs from the fused-scan proof")
+    if prof["device_busy_s"] is not None:
+        prof["device_busy_share"] = prof["device_busy_s"] / prof["profiled_wall_s"]
+    widest = {k: [sizes[k]["largest"]] for k in ("add_mixed_g1", "add_mixed_g2")}
+    src_of = lambda g: _key_points(prover.dpk, g)  # noqa: E731
+    _check_adds(src_of, c, device, widest)
+    out["capture"] = {
+        "msm_scan": "capture", "prove_s": wall, "phases_s": timer.as_dict(),
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30, "launches_per_prove": launches,
+        "launches_by_size": sizes, "equal_to_fused_proof": True, "k6_k7_digit_equal_at_n": widest,
+        "k6_launches_by_points": k6_sizes, "profile": prof, "card": card_line(),
+    }
+    # K6's two forms at the points of this prove's launches
+    _k6_forms(src_of, c, device, sizes=list(k6_sizes), check=False)
+    _step(out, "capture")
+    return launches, proofs
 
 
 def main() -> int:
@@ -1400,7 +1550,7 @@ def main() -> int:
     kernels = []
     for name, e in entries.items():
         by_path = {"main": launches.get(name, 0), "capture": capture.get(name, 0),
-                   "setup": setup.get(name, 0), "bls12_381_2p20": bls.get(name, 0)}
+                   "setup": setup.get(name, 0), **{p: n.get(name, 0) for p, n in bls.items()}}
         if name in bls_rows:
             e = dict(e, bls12_381={k: v for k, v in bls_rows[name].items() if k not in e or e[k] != v})
         # the main path's launches, else those of the first path that ran it

@@ -66,9 +66,8 @@ __device__ __forceinline__ uint32_t rex(uint32_t (&x)[L]) {
 }
 
 // G16_OUTLINE_MUL (utils/cuda_build.py sets it for the L = 26 libraries of
-// the one-thread kernels, K6 and the scans): mont_mul is compiled once and
-// called, instead of being inlined into each of the 12-52 products of a
-// point addition.  Inlined at
+// the scans K2/K3): mont_mul is compiled once and called, instead of being
+// inlined into each of the 12-52 products of a point addition.  Inlined at
 // L = 26, one such kernel took ptxas 12-15 minutes (spilling up to 27 KB a
 // thread over Fq2); a call passes its operands through the stack, a few
 // dozen words against the ~4,000 instructions of the product.
@@ -82,8 +81,8 @@ __device__ __forceinline__ uint32_t rex(uint32_t (&x)[L]) {
 // output exact digits < 2p.  The columns of acc stay < 2^23 (fp.py ledger).
 // Both loops are unrolled, so every register index is static.  Always
 // inlined: the cooperative point additions (point_add.cu) call it from one
-// site per kernel; `mont_mul` below is the form the one-thread formulas
-// call (out of line under G16_OUTLINE_MUL).
+// site per kernel; `mont_mul` below is the form the scans' formulas call
+// (out of line under G16_OUTLINE_MUL).
 template <int L>
 __device__ __forceinline__ void mont_mul_inline(const uint32_t (&a_in)[L],
                                                 const uint32_t (&b_in)[L], uint32_t (&out)[L],
@@ -266,7 +265,8 @@ __device__ __forceinline__ Fe<L, D> fb3(const Consts<L>& k) {
 // are those of the 15-bit CIOS (tests/test_torch_fp.py holds a model of
 // these steps against the plain version).  Values below 8p must fit in W
 // words: W = 9 at L = 18; at L = 26, 12 words hold 8p for p < 2^381
-// (fields/cuda_fp.py checks it).  Only K1 (mont_mul.cu) uses it.
+// (fields/cuda_fp.py checks it).  K1 (mont_mul.cu) and K6 (point_add.cu)
+// use it.
 
 template <int L>
 struct Words {
@@ -372,6 +372,65 @@ __device__ __forceinline__ void mont_mul_words(const uint32_t (&a_in)[L],
   }
   mont_mul_w<L>(wa, wb, wr, k);
   unpack_digits<L>(wr, out);
+}
+
+// -- word-resident elements (K6): the integers of fp.py's lazy adds, subs and
+// cond_subs, kept in W words between products.  Every value stays below
+// 8p, so below 2^(32 W), and no chain carries out of its top word.
+
+// r = a + b (the integer of a lazy digit-wise add)
+template <int W>
+__device__ __forceinline__ void add_w(const uint32_t (&a)[W], const uint32_t (&b)[W],
+                                      uint32_t (&r)[W]) {
+  asm volatile("add.cc.u32 %0, %1, %2;" : "=r"(r[0]) : "r"(a[0]), "r"(b[0]));
+#pragma unroll
+  for (int j = 1; j < W - 1; j++)
+    asm volatile("addc.cc.u32 %0, %1, %2;" : "=r"(r[j]) : "r"(a[j]), "r"(b[j]));
+  asm volatile("addc.u32 %0, %1, %2;" : "=r"(r[W - 1]) : "r"(a[W - 1]), "r"(b[W - 1]));
+}
+
+// r = a - b + m with m = k p and b < m (fp.sub's integer): a + m first,
+// then the borrow chain of b
+template <int W>
+__device__ __forceinline__ void sub_w(const uint32_t (&a)[W], const uint32_t (&b)[W],
+                                      const uint32_t (&m)[W], uint32_t (&r)[W]) {
+  uint32_t t[W];
+  add_w<W>(a, m, t);
+  asm volatile("sub.cc.u32 %0, %1, %2;" : "=r"(r[0]) : "r"(t[0]), "r"(b[0]));
+#pragma unroll
+  for (int j = 1; j < W - 1; j++)
+    asm volatile("subc.cc.u32 %0, %1, %2;" : "=r"(r[j]) : "r"(t[j]), "r"(b[j]));
+  asm volatile("subc.u32 %0, %1, %2;" : "=r"(r[W - 1]) : "r"(t[W - 1]), "r"(b[W - 1]));
+}
+
+// x <- x - m where x >= m (fp.cond_sub's integer): the borrow of x - m
+// picks x or the difference
+template <int W>
+__device__ __forceinline__ void cond_sub_w(uint32_t (&x)[W], const uint32_t (&m)[W]) {
+  uint32_t u[W], borrow;
+  asm volatile("sub.cc.u32 %0, %1, %2;" : "=r"(u[0]) : "r"(x[0]), "r"(m[0]));
+#pragma unroll
+  for (int j = 1; j < W; j++)
+    asm volatile("subc.cc.u32 %0, %1, %2;" : "=r"(u[j]) : "r"(x[j]), "r"(m[j]));
+  asm volatile("subc.u32 %0, 0, 0;" : "=r"(borrow));  // 0, or ~0 where x < m
+#pragma unroll
+  for (int j = 0; j < W; j++) x[j] = borrow ? x[j] : u[j];
+}
+
+// digits of any class (value < 2^(15 L)) -> words: rex, then pack
+template <int L>
+__device__ __forceinline__ void digits_to_words(const uint32_t (&d)[L],
+                                                uint32_t (&w)[Words<L>::W]) {
+  constexpr int W = Words<L>::W;
+#pragma unroll
+  for (int j = 0; j < W; j++) w[j] = 0;
+  uint32_t c = 0;
+#pragma unroll
+  for (int j = 0; j < L; j++) {
+    const uint32_t t = d[j] + c;
+    c = t >> BITS;
+    pack_digit<W>(w, j, t & MASK);
+  }
 }
 
 // Fp: mont_mul.  Fp2 (|NR| <= 16): Fp2Ops.mul_many — schoolbook with the

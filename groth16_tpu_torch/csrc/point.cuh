@@ -98,4 +98,58 @@ __device__ __forceinline__ void rcb_add_mixed(const Fe<L, D>& X1, const Fe<L, D>
   fcond_sub(Z3, 2, k);
 }
 
+// K6's constants on words: p and n0 for mont_mul_w, then 2p, 4p and b3
+// (Montgomery form, < p)
+template <int L>
+struct MixedWordConsts {
+  WordConsts k;
+  uint32_t p2[Words<L>::W], p4[Words<L>::W], b3[Words<L>::W];
+};
+
+// rcb_add_mixed over Fq on words (K6): the same products, lazy adds,
+// subtractions with kp and cond_subs on the same integers, so the unpacked
+// digits are rcb_add_mixed's.  Inputs < 2p; every operand of a product
+// < 8p (mont_mul_w's contract): X1 + Y1, X2 + Y2 < 4p; t3 < 6p, t0t < 6p,
+// t4, t5, Z3s, t1m < 4p.  Outputs < 2p.  The order frees each input at
+// its last use (at most seven elements live between products).
+template <int L>
+__device__ __forceinline__ void rcb_add_mixed_w(
+    const uint32_t (&X1)[Words<L>::W], const uint32_t (&Y1)[Words<L>::W],
+    const uint32_t (&Z1)[Words<L>::W], const uint32_t (&X2)[Words<L>::W],
+    const uint32_t (&Y2)[Words<L>::W], uint32_t (&X3)[Words<L>::W],
+    uint32_t (&Y3)[Words<L>::W], uint32_t (&Z3)[Words<L>::W], const MixedWordConsts<L>& c) {
+  constexpr int W = Words<L>::W;
+  uint32_t m3[W], t0[W], t1[W], t4[W], t5[W], a[W], b[W];
+  add_w<W>(X1, Y1, a);
+  add_w<W>(X2, Y2, b);
+  mont_mul_w<L>(a, b, m3, c.k);
+  mont_mul_w<L>(X1, X2, t0, c.k);
+  mont_mul_w<L>(X2, Z1, a, c.k);
+  add_w<W>(X1, a, t5);  // X1 + X2 Z1 < 4p
+  mont_mul_w<L>(Y1, Y2, t1, c.k);
+  mont_mul_w<L>(Y2, Z1, a, c.k);
+  add_w<W>(Y1, a, t4);  // Y1 + Y2 Z1 < 4p
+  add_w<W>(t0, t1, a);
+  sub_w<W>(m3, a, c.p4, m3);  // t3 = m3 - (t0 + t1) + 4p < 6p
+  uint32_t t2b[W], Z3s[W], t1m[W];
+  mont_mul_w<L>(Z1, c.b3, t2b, c.k);
+  add_w<W>(t1, t2b, Z3s);        // < 4p
+  sub_w<W>(t1, t2b, c.p2, t1m);  // < 4p
+  add_w<W>(t0, t0, a);
+  add_w<W>(a, t0, t0);            // t0t = 3 t0 < 6p
+  mont_mul_w<L>(t5, c.b3, t5, c.k);  // t5b
+  mont_mul_w<L>(t4, t5, a, c.k);     // w0
+  mont_mul_w<L>(m3, t1m, b, c.k);    // w1
+  sub_w<W>(b, a, c.p2, X3);          // < 4p
+  mont_mul_w<L>(t5, t0, a, c.k);     // w2
+  mont_mul_w<L>(t1m, Z3s, b, c.k);   // w3
+  add_w<W>(b, a, Y3);                // < 4p
+  mont_mul_w<L>(t0, m3, a, c.k);     // w4
+  mont_mul_w<L>(Z3s, t4, b, c.k);    // w5
+  add_w<W>(b, a, Z3);                // < 4p
+  cond_sub_w<W>(X3, c.p2);
+  cond_sub_w<W>(Y3, c.p2);
+  cond_sub_w<W>(Z3, c.p2);
+}
+
 }  // namespace g16

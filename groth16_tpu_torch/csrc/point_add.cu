@@ -2,25 +2,28 @@
 //   rcb_add<F>        K4 (G1) replaces groth16_tpu/curves/pallas_point.py:
 //                     add_g1_pallas (_add_kernel -> full_add_g1_math);
 //                     K5 (G2) replaces add_g2_pallas (_add_g2_kernel).
-//   rcb_add_mixed<F>  K6 (G1) replaces add_mixed_g1_pallas (_add_mixed_kernel
-//                     -> mixed_add_g1_math); K7 (G2) replaces
-//                     add_mixed_g2_pallas (_add_mixed_g2_kernel).
+//   rcb_add_mixed<F>  K7 (G2) replaces add_mixed_g2_pallas
+//                     (_add_mixed_g2_kernel).
+//   rcb_add_mixed_w   K6 (G1, on 32-bit words, point_add_words_kernel)
+//                     replaces add_mixed_g1_pallas (_add_mixed_kernel ->
+//                     mixed_add_g1_math).
 // Each library holds one formula, so the four build in parallel:
 // -DG16_LIMBS=L (digits of Fq), -DG16_D=1 (G1, Fq) or 2 (G2, Fq2),
-// -DG16_MIXED=0 (rcb_add) or 1 (rcb_add_mixed), -DG16_NR=nr (the Fq2
+// -DG16_MIXED=0 (rcb_add) or 1 (the mixed formula), -DG16_NR=nr (the Fq2
 // nonresidue; unused for G1).  The library's name says which
 // (utils/cuda_build.py:point_add_variant).
 //
 // Bound on an H100: integer multiply-add bound.  An addition needs 12
-// (mixed: 13) Montgomery products of 2 L^2 + L multiply-adds each (x4 over
-// Fp2): 7,992 (8,658) at L = 18, against 9 (mixed: 8) coordinates of 4 L
-// bytes (x2 over Fp2) of traffic, 12-15 multiply-adds per byte against the
-// card's ~5 (64 per SM per clock on 132 SMs against 3.35 TB/s).  For the
-// few points most launches of a prove carry, the bound is microseconds and
-// what costs is the latency of one addition.
+// (mixed: 13) Montgomery products of 2 L^2 + L multiply-adds each on 15-bit
+// digits (x4 over Fp2): 7,992 (8,658) at L = 18, against 9 (mixed: 8)
+// coordinates of 4 L bytes (x2 over Fp2) of traffic, 12-15 multiply-adds
+// per byte against the card's ~5 (64 per SM per clock on 132 SMs against
+// 3.35 TB/s).  On 32-bit words (field.cuh: mont_mul_w) a product takes 333
+// (L = 18) or 613 (L = 26) 32-bit multiplies, still ~6 per byte.
 //
 // The full addition (K4, K5), the G2 mixed one (K7) and the MSM's Horner
-// chain run on a group of lanes; the G1 mixed addition (K6) on one thread:
+// chain run on a group of lanes; the G1 mixed addition (K6) on one thread
+// on words:
 //   point_add_group_kernel a group of lanes per point (6 for G1, 5 groups a
 //                          warp; 24 for G2, one a warp): each of the
 //                          formula's three product stages (full: 6, 2 and
@@ -34,17 +37,31 @@
 //                          one product's digits, so nothing spills.  The
 //                          mixed form tests P2 for infinity first: such a
 //                          point skips every stage (a G2 warp as a whole).
+//                          Most launches of a prove carry a few points,
+//                          where one addition's latency is the launch's
+//                          time.
 //   horner_kernel          res = sum_w 2^(c w) S_w for every lane of one MSM
 //                          in one launch: per window from the top c
 //                          doublings add(P, P) and one add of S_w, each the
 //                          group body, the running point in shared memory.
-//   point_add_kernel       K6, one thread per point, the whole formula in
-//                          registers.
-// Every element goes through the same mont_mul, sub, sub_exact, cond_sub and
-// reduce_to_2p of field.cuh in the same order as rcb_add and rcb_add_mixed
-// (point.cuh), so the digits are the plain versions' (curves/cuda_point.py).
-// A mixed G2 library holds the group form only, a mixed G1 library the
-// one-thread form only.
+//   point_add_words_kernel K6, one thread per point: every K6 launch of a
+//                          prove carries thousands of points (the capture
+//                          scan's steps), so its cost is throughput.  The
+//                          coordinates are packed into 32-bit words at
+//                          load (9 at L = 18, 12 at L = 26) and stay in
+//                          words through the formula (rcb_add_mixed_w):
+//                          half the multiplies of the 15-bit digits and
+//                          half the registers (the five inputs 45 or 60),
+//                          so more warps an SM hide the products' chains,
+//                          and it inlines at L = 26 in the time K1 takes.
+//                          P2 is tested for infinity before any product.
+// The group form on digits runs every element through the same mont_mul,
+// sub, sub_exact, cond_sub and reduce_to_2p of field.cuh in the same order as
+// rcb_add and rcb_add_mixed (point.cuh); the word form computes the same
+// integers.  So the digits are the plain versions' (curves/cuda_point.py).
+// A mixed G2 library holds the group form, a mixed G1 library the word
+// kernel at two occupancies (WordBlocks; cuda_point.mixed_g1_form picks
+// the one that runs a launch in fewer waves).
 
 #include <cuda_runtime.h>
 
@@ -58,26 +75,6 @@ namespace {
 
 using g16::Consts;
 using g16::Fe;
-
-template <int L, int D, int NR>
-__global__ void __launch_bounds__(128)
-    point_add_kernel(const uint32_t* __restrict__ x1, const uint32_t* __restrict__ y1,
-                     const uint32_t* __restrict__ z1, const uint32_t* __restrict__ x2,
-                     const uint32_t* __restrict__ y2, uint32_t* __restrict__ x3,
-                     uint32_t* __restrict__ y3, uint32_t* __restrict__ z3, long long n,
-                     const uint32_t* __restrict__ consts, uint32_t n0) {
-  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  Consts<L> k{consts, n0};
-  Fe<L, D> X1 = g16::load<L, D>(x1, i, n), Y1 = g16::load<L, D>(y1, i, n),
-           Z1 = g16::load<L, D>(z1, i, n), X2 = g16::load<L, D>(x2, i, n),
-           Y2 = g16::load<L, D>(y2, i, n);
-  Fe<L, D> X3, Y3, Z3;
-  g16::rcb_add_mixed<L, D, NR>(X1, Y1, Z1, X2, Y2, X3, Y3, Z3, k);
-  g16::store<L, D>(x3, i, n, X3);
-  g16::store<L, D>(y3, i, n, Y3);
-  g16::store<L, D>(z3, i, n, Z3);
-}
 
 // -- the group form --------------------------------------------------------------
 
@@ -509,22 +506,137 @@ __global__ void __launch_bounds__(32 * kGroupWarps, 4)
   }
 }
 
+// -- K6 on words -------------------------------------------------------------------
+
+constexpr int kWordThreads = 128;
+
+// Blocks an SM holds of the word kernel at least: as many as the
+// formula's registers allow (80 a thread at L = 18, 128 at L = 26), or
+// more, forced (64 and 80 registers, a few hundred bytes a thread spilled
+// to L1).  A wave of the forced form holds a third (L = 18) or a half
+// (L = 26) more points, each slower: it wins where it runs a launch in
+// fewer waves (cuda_point.mixed_g1_form, PERF.md).
+template <int L>
+struct WordBlocks {
+  static constexpr int natural = L == 18 ? 6 : 4, wide = L == 18 ? 8 : 6;
+};
+
+// digits [L] of element i of a limb-major plane
+template <int L>
+__device__ __forceinline__ void load_digits(const uint32_t* __restrict__ p, long long i,
+                                            long long n, uint32_t (&d)[L]) {
+#pragma unroll
+  for (int j = 0; j < L; j++) d[j] = __ldg(p + j * n + i);
+}
+
+template <int L>
+__device__ __forceinline__ void load_words(const uint32_t* __restrict__ p, long long i,
+                                           long long n, uint32_t (&w)[g16::Words<L>::W]) {
+  uint32_t d[L];
+  load_digits<L>(p, i, n, d);
+  g16::digits_to_words<L>(d, w);
+}
+
+template <int L>
+__device__ __forceinline__ void store_words(uint32_t* __restrict__ p, long long i, long long n,
+                                            const uint32_t (&w)[g16::Words<L>::W]) {
+  uint32_t d[L];
+  g16::unpack_digits<L>(w, d);
+#pragma unroll
+  for (int j = 0; j < L; j++) p[j * n + i] = d[j];
+}
+
+// (x1, y1, z1) + affine (x2, y2) over Fq, one thread a point.  A point
+// whose Y2 digits are all zero (affine infinity) does no product and
+// returns P1's digits unchanged; a warp whose points all are skips the
+// formula as a whole.
+template <int L, int MIN_BLOCKS>
+__global__ void __launch_bounds__(kWordThreads, MIN_BLOCKS)
+    point_add_words_kernel(const uint32_t* __restrict__ x1, const uint32_t* __restrict__ y1,
+                           const uint32_t* __restrict__ z1, const uint32_t* __restrict__ x2,
+                           const uint32_t* __restrict__ y2, uint32_t* __restrict__ x3,
+                           uint32_t* __restrict__ y3, uint32_t* __restrict__ z3, long long n,
+                           const g16::MixedWordConsts<L> c) {
+  constexpr int W = g16::Words<L>::W;
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  uint32_t d[L], any = 0;
+  load_digits<L>(y2, i, n, d);
+#pragma unroll
+  for (int j = 0; j < L; j++) any |= d[j];
+  if (any == 0) {
+#pragma unroll
+    for (int j = 0; j < L; j++) {
+      x3[j * n + i] = __ldg(x1 + j * n + i);
+      y3[j * n + i] = __ldg(y1 + j * n + i);
+      z3[j * n + i] = __ldg(z1 + j * n + i);
+    }
+    return;
+  }
+  uint32_t X1[W], Y1[W], Z1[W], X2[W], Y2[W], X3[W], Y3[W], Z3[W];
+  g16::digits_to_words<L>(d, Y2);
+  load_words<L>(x1, i, n, X1);
+  load_words<L>(y1, i, n, Y1);
+  load_words<L>(z1, i, n, Z1);
+  load_words<L>(x2, i, n, X2);
+  g16::rcb_add_mixed_w<L>(X1, Y1, Z1, X2, Y2, X3, Y3, Z3, c);
+  store_words<L>(x3, i, n, X3);
+  store_words<L>(y3, i, n, Y3);
+  store_words<L>(z3, i, n, Z3);
+}
+
 }  // namespace
 
 #if G16_MIXED && G16_D == 1
-// (x1, y1, z1) + affine (x2, y2), one thread a point (K6).  Returns 0 or
-// the CUDA error of the launch.
-extern "C" int g16_point_add(const void* x1, const void* y1, const void* z1, const void* x2,
-                             const void* y2, void* x3, void* y3, void* z3, long long n,
-                             const void* consts, unsigned n0, void* stream) {
-  const int threads = 128;
-  long long blocks = (n + threads - 1) / threads;
-  point_add_kernel<G16_LIMBS, G16_D, G16_NR>
-      <<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-          (const uint32_t*)x1, (const uint32_t*)y1, (const uint32_t*)z1, (const uint32_t*)x2,
-          (const uint32_t*)y2, (uint32_t*)x3, (uint32_t*)y3, (uint32_t*)z3, n,
-          (const uint32_t*)consts, n0);
+template <int L>
+using WordKernel = void (*)(const uint32_t*, const uint32_t*, const uint32_t*, const uint32_t*,
+                            const uint32_t*, uint32_t*, uint32_t*, uint32_t*, long long,
+                            g16::MixedWordConsts<L>);
+
+// K6's word kernel at its natural (form 0) or forced (form 1) occupancy
+template <int L>
+WordKernel<L> word_kernel(int form) {
+  if (form == 0) return point_add_words_kernel<L, WordBlocks<L>::natural>;
+  if (form == 1) return point_add_words_kernel<L, WordBlocks<L>::wide>;
+  return nullptr;
+}
+
+// K6: (x1, y1, z1) + affine (x2, y2) by the word kernel in form 0 or 1.
+// words: p, -p^-1 mod 2^32, 2p, 4p and b3 (Montgomery form), each as
+// Words<L>::W words (one for n0).  Returns 0, the CUDA error of the
+// launch, or -1 for an unknown form.
+extern "C" int g16_point_add_mixed_g1(int form, const void* x1, const void* y1, const void* z1,
+                                      const void* x2, const void* y2, void* x3, void* y3,
+                                      void* z3, long long n, const unsigned* words,
+                                      void* stream) {
+  constexpr int L = G16_LIMBS, W = g16::Words<L>::W;
+  const WordKernel<L> kernel = word_kernel<L>(form);
+  if (kernel == nullptr) return -1;
+  g16::MixedWordConsts<L> c{};
+  for (int j = 0; j < W; j++) {
+    c.k.p[j] = words[j];
+    c.p2[j] = words[W + 1 + j];
+    c.p4[j] = words[2 * W + 1 + j];
+    c.b3[j] = words[3 * W + 1 + j];
+  }
+  c.k.n0 = words[W];
+  const unsigned blocks = (unsigned)((n + kWordThreads - 1) / kWordThreads);
+  kernel<<<blocks, kWordThreads, 0, (cudaStream_t)stream>>>(
+      (const uint32_t*)x1, (const uint32_t*)y1, (const uint32_t*)z1, (const uint32_t*)x2,
+      (const uint32_t*)y2, (uint32_t*)x3, (uint32_t*)y3, (uint32_t*)z3, n, c);
   return (int)cudaGetLastError();
+}
+
+// Blocks of kWordThreads an SM holds of form 0 or 1 on the current card
+// (the CUDA occupancy query): > 0, -1 for an unknown form, or minus the
+// CUDA error.
+extern "C" int g16_point_add_mixed_g1_blocks(int form) {
+  const WordKernel<G16_LIMBS> kernel = word_kernel<G16_LIMBS>(form);
+  if (kernel == nullptr) return -1;
+  int blocks = 0;
+  const cudaError_t e =
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, (const void*)kernel, kWordThreads, 0);
+  return e == cudaSuccess ? blocks : -(int)e;
 }
 #elif G16_MIXED
 // (x1, y1, z1) + affine (x2, y2) in the group form (K7).

@@ -12,12 +12,16 @@ Counterpart of `groth16_tpu/curves/pallas_point.py`:
                 `CurveDevice.add` at groth16_tpu/msm/pippenger.py:660)
 
 One CUDA kernel body per formula (csrc/point_add.cu: rcb_add<F>,
-rcb_add_mixed<F>) templated on the coordinate field.  The full addition
+rcb_add_mixed<F>, and K6's rcb_add_mixed_w) templated on the coordinate
+field.  The full addition
 (K4/K5), the G2 mixed addition (K7) and the Horner chain run on a group
 of lanes per point (6 for G1, 24 for G2), each of the formula's three
 product stages one product a lane: most launches of a prove carry a few
 points, where one addition's latency is the launch's time.  The G1 mixed
-addition (K6) runs one thread per point.
+addition (K6), whose launches (the capture scan's steps) carry thousands
+of points, runs one thread per point with its coordinates packed into
+32-bit words (csrc/point.cuh: rcb_add_mixed_w), the word engine of K1,
+at one of two occupancies (`mixed_g1_form`).
 Coordinates are limb-major `int32[L, N]` (G1) or `int32[L, 2, N]` (G2),
 < 2p with exact digits in and out.
 
@@ -40,7 +44,13 @@ import functools
 
 import torch
 
-from groth16_tpu_torch.fields.cuda_fp import KERNEL_LIMBS, check_operand, kernel_consts
+from groth16_tpu_torch.fields.cuda_fp import (
+    KERNEL_LIMBS,
+    KERNEL_WORDS,
+    check_operand,
+    kernel_consts,
+    word_consts,
+)
 from groth16_tpu_torch.fields.ops import Fp2Ops, FpOps
 from groth16_tpu_torch.fields.spec import FpSpec
 
@@ -65,6 +75,52 @@ def size_class(n: int) -> str:
     return SIZE_CLASSES[0] if n <= 4 else SIZE_CLASSES[1] if n <= 4096 else SIZE_CLASSES[2]
 
 
+# K6's forms (csrc/point_add.cu: g16_point_add_mixed_g1): one thread a
+# point on 32-bit words with as many blocks an SM as its registers allow,
+# or forced to more blocks an SM (fewer registers, some spilled)
+MIXED_G1_FORMS = {"words": 0, "words_wide": 1}
+WORD_THREADS = 128  # threads a block of K6 (csrc/point_add.cu: kWordThreads)
+
+
+def mixed_g1_form(n: int, wave: dict) -> str:
+    """K6's form for a launch of n points, where wave[form] is the points
+    one wave of that form holds on the card (`mixed_g1_waves`): the wide
+    form where it runs the launch in fewer waves, else "words" (a wave of
+    the wide form takes longer: PERF.md)."""
+    if -(-n // wave["words_wide"]) < -(-n // wave["words"]):
+        return "words_wide"
+    return "words"
+
+
+@functools.lru_cache(maxsize=None)
+def mixed_g1_waves(L: int, device: torch.device) -> dict:
+    """Points one wave of each K6 form holds on `device`: its blocks an SM
+    (the CUDA occupancy query) x SMs x WORD_THREADS."""
+    lib = _lib(L, 1, True, 0)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    wave = {}
+    for form, code in MIXED_G1_FORMS.items():
+        blocks = lib.g16_point_add_mixed_g1_blocks(code)
+        if blocks <= 0:
+            raise RuntimeError(f"add_mixed_g1: occupancy query of form {form} failed ({blocks})")
+        wave[form] = blocks * sms * WORD_THREADS
+    return wave
+
+
+@functools.lru_cache(maxsize=None)
+def mixed_word_consts(spec: FpSpec, b3_val: int):
+    """K6's word constants: p and -p^-1 mod 2^32 (K1's), then 2p, 4p and
+    b3 in Montgomery form, each as W words."""
+    W = KERNEL_WORDS[spec.n_limbs]
+    p = spec.modulus
+
+    def words(v):
+        return [(v >> (32 * i)) & 0xFFFFFFFF for i in range(W)]
+
+    vals = list(word_consts(spec)) + words(2 * p) + words(4 * p) + words(spec.to_mont_int(b3_val % p))
+    return (ctypes.c_uint * len(vals))(*vals)
+
+
 @functools.lru_cache(maxsize=None)
 def _plain_ops(spec: FpSpec, nr):
     return FpOps(spec, plain=True) if nr is None else Fp2Ops(spec, nr, plain=True)
@@ -77,10 +133,16 @@ def _lib(n_limbs: int, deg: int, mixed: bool, nr: int):
     if not getattr(lib, "_g16_typed", False):
         P = ctypes.c_void_p
         tail = [ctypes.c_longlong, P, ctypes.c_uint, P]
-        if mixed:
-            fn = lib.g16_point_add if deg == 1 else lib.g16_point_add_mixed_group
-            fn.argtypes = [P] * 8 + tail
-            fn.restype = ctypes.c_int
+        if mixed and deg == 1:
+            lib.g16_point_add_mixed_g1.argtypes = (
+                [ctypes.c_int] + [P] * 8 + [ctypes.c_longlong, ctypes.POINTER(ctypes.c_uint), P]
+            )
+            lib.g16_point_add_mixed_g1.restype = ctypes.c_int
+            lib.g16_point_add_mixed_g1_blocks.argtypes = [ctypes.c_int]
+            lib.g16_point_add_mixed_g1_blocks.restype = ctypes.c_int
+        elif mixed:
+            lib.g16_point_add_mixed_group.argtypes = [P] * 8 + tail
+            lib.g16_point_add_mixed_group.restype = ctypes.c_int
         else:
             lib.g16_point_add_group.argtypes = [P] * 9 + tail
             lib.g16_point_add_group.restype = ctypes.c_int
@@ -122,15 +184,14 @@ def _launch(name, mixed, spec, nr, b3_val, p1, p2):
     if n == 0:
         return tuple(outs)
     lib = _lib(L, D, mixed, 0 if nr is None else nr)
-    if mixed:  # K6 one thread a point, K7 a lane group
-        fn = lib.g16_point_add if D == 1 else lib.g16_point_add_mixed_group
-    else:
-        fn = lib.g16_point_add_group
-    consts = kernel_consts(spec, b3_val, dev)
-    rc = fn(
-        *[x.data_ptr() for x in ins], *[o.data_ptr() for o in outs], n, consts.data_ptr(),
-        spec.n0inv, torch.cuda.current_stream(dev).cuda_stream,
-    )
+    ptrs = [x.data_ptr() for x in ins] + [o.data_ptr() for o in outs]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if mixed and D == 1:  # K6
+        form = MIXED_G1_FORMS[mixed_g1_form(n, mixed_g1_waves(L, dev))]
+        rc = lib.g16_point_add_mixed_g1(form, *ptrs, n, mixed_word_consts(spec, b3_val), stream)
+    else:  # K7, or K4/K5: a lane group a point
+        fn = lib.g16_point_add_mixed_group if mixed else lib.g16_point_add_group
+        rc = fn(*ptrs, n, kernel_consts(spec, b3_val, dev).data_ptr(), spec.n0inv, stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
     LAUNCHES[name] += 1

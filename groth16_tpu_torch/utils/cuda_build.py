@@ -16,6 +16,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from typing import Dict, Iterable, Tuple
 
@@ -32,18 +33,17 @@ _LIBS: Dict[str, Tuple[str, Tuple[str, ...]]] = {
 }
 
 
-# From this many digits on, the one-thread kernels (the G1 mixed addition
-# K6 and the scans K2/K3) call the Montgomery product instead of inlining
-# it (csrc/field.cuh: G16_OUTLINE_MUL): inlined, the L = 26 kernels take
-# ptxas 12-15 minutes.  The group forms (K4, K5, K7) and the Horner kernel
-# inline it at every L: each has one call site.
+# From this many digits on, the scans K2/K3 (one thread a column, 15-bit
+# digits) call the Montgomery product instead of inlining it
+# (csrc/field.cuh: G16_OUTLINE_MUL): inlined, an L = 26 one-thread kernel
+# on digits took ptxas 12-15 minutes.  The group forms (K4, K5, K7) and the
+# Horner kernel inline it at every L (each has one call site), and so does
+# K6 on 32-bit words.
 OUTLINE_MUL_MIN_LIMBS = 26
 
 
-def _formula_defines(n_limbs: int, deg: int, nr: int, one_thread: bool) -> Tuple[str, ...]:
-    defines = (f"-DG16_LIMBS={n_limbs}", f"-DG16_D={deg}", f"-DG16_NR={nr}")
-    outline = one_thread and n_limbs >= OUTLINE_MUL_MIN_LIMBS
-    return defines + (("-DG16_OUTLINE_MUL",) if outline else ())
+def _formula_defines(n_limbs: int, deg: int, nr: int) -> Tuple[str, ...]:
+    return (f"-DG16_LIMBS={n_limbs}", f"-DG16_D={deg}", f"-DG16_NR={nr}")
 
 
 def point_add_variant(n_limbs: int, deg: int, mixed: bool, nr: int = 0) -> str:
@@ -52,8 +52,8 @@ def point_add_variant(n_limbs: int, deg: int, mixed: bool, nr: int = 0) -> str:
     if deg == 1:
         nr = 0  # the G1 kernels never read it: one library for every curve
     name = f"point_add_L{n_limbs}_d{deg}_{'mixed' if mixed else 'full'}_nr{nr}".replace("-", "m")
-    defines = _formula_defines(n_limbs, deg, nr, one_thread=mixed and deg == 1)
-    _LIBS.setdefault(name, ("point_add.cu", defines + (f"-DG16_MIXED={int(mixed)}",)))
+    defines = _formula_defines(n_limbs, deg, nr) + (f"-DG16_MIXED={int(mixed)}",)
+    _LIBS.setdefault(name, ("point_add.cu", defines))
     return name
 
 
@@ -63,7 +63,10 @@ def suffix_scan_variant(n_limbs: int, deg: int, nr: int = 0) -> str:
     if deg == 1:
         nr = 0
     name = f"suffix_scan_L{n_limbs}_d{deg}_nr{nr}".replace("-", "m")
-    _LIBS.setdefault(name, ("suffix_scan.cu", _formula_defines(n_limbs, deg, nr, one_thread=True)))
+    defines = _formula_defines(n_limbs, deg, nr)
+    if n_limbs >= OUTLINE_MUL_MIN_LIMBS:
+        defines += ("-DG16_OUTLINE_MUL",)
+    _LIBS.setdefault(name, ("suffix_scan.cu", defines))
     return name
 
 
@@ -129,11 +132,20 @@ def build(names: Iterable[str]) -> Dict[str, Dict]:
             ),
         )
     failed, reports = [], {}
-    for name, (out, tmp, t0, proc) in procs.items():
+
+    def wait(name):  # one thread a build, so each build's seconds are its own
+        out, tmp, t0, proc = procs[name]
         log, _ = proc.communicate()
         reports[name] = {"seconds": time.time() - t0, "ptxas": log}
+
+    waiters = [threading.Thread(target=wait, args=(name,)) for name in procs]
+    for w in waiters:
+        w.start()
+    for w in waiters:
+        w.join()
+    for name, (out, tmp, _, proc) in procs.items():
         if proc.returncode != 0:
-            failed.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
+            failed.append(f"{name}: nvcc exited {proc.returncode}\n{reports[name]['ptxas']}")
         else:
             os.replace(tmp, out)
     if failed:

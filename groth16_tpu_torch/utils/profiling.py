@@ -82,3 +82,10 @@ def point_add_u32_ops(n_limbs: int, fp2: bool = False, mixed: bool = True) -> in
     products over Fq2."""
     products = (13 if mixed else 12) * (4 if fp2 else 1)
     return products * mont_mul_u32_ops(n_limbs)
+
+
+def point_add_word_ops(n_limbs: int, fp2: bool = False, mixed: bool = True) -> int:
+    """point_add_u32_ops on the word engine: the same 13 (mixed) or 12
+    field products, x4 over Fq2, each mont_mul_word_ops."""
+    products = (13 if mixed else 12) * (4 if fp2 else 1)
+    return products * mont_mul_word_ops(n_limbs)

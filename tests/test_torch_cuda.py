@@ -230,6 +230,43 @@ def test_mixed_add_g2_group_form_matches_plain(dev, curve, n):
     assert codec.g2_from_device(c, g, got) == [add(x, y) for x, y in zip(lhs, rhs)]
 
 
+@pytest.mark.parametrize("form", list(cuda_point.MIXED_G1_FORMS))
+@pytest.mark.parametrize("n", [1, 33, 4096 + 5, 1 << 17])
+@pytest.mark.parametrize("curve", ["bn254", "bls12_381"])
+def test_mixed_add_g1_forms_match_plain(dev, curve, n, form, monkeypatch):
+    """K6 in each of its forms (the word kernel at its natural and at a
+    forced occupancy) at n points, L = 18 and 26: the special lanes
+    P + P, P + (-P), P + inf, inf + P and inf + inf first, then a
+    projective left operand (Z != 1) plus affine points, lanes 32-63 (a
+    warp of the word kernel) all with P2 infinity, the 96 lanes tiled up
+    to n; digit-equal to the plain version, the first lanes the exact
+    sums, counted on the launch counter and the size class."""
+    c = get_curve(curve)
+    lhs, rhs, add = _batches(curve, False, 96, seed=13)
+    lhs, rhs = lhs[-5:] + lhs[:-5], rhs[-5:] + rhs[:-5]
+    rhs = [None if 32 <= i < 64 else q for i, q in enumerate(rhs)]
+    g = codec.g1_ops(c)
+    p1 = codec.g1_to_device(c, lhs, "cpu")
+    p1 = g.add(p1, g.infinity(g.batch_shape(p1)))  # Z != 1
+    inf = torch.tensor([q is None for q in rhs])
+    xy2 = tuple(torch.where(inf, torch.zeros_like(x), x) for x in codec.g1_to_device(c, rhs, "cpu")[:2])
+    idx = torch.arange(n) % len(lhs)
+    p1, xy2 = (tuple(x[:, idx].contiguous().to(dev) for x in pt) for pt in (p1, xy2))
+    plain = cuda_point.mixed_add_plain(cuda_point._plain_ops(g.k.spec, None), g.b3_val, p1, xy2)
+    monkeypatch.setattr(cuda_point, "mixed_g1_form", lambda n_, wave_: form)
+    size = cuda_point.size_class(n)
+    before = (cuda_point.LAUNCHES["add_mixed_g1"], cuda_point.LAUNCH_SIZES["add_mixed_g1"][size])
+    got = g.add_affine(p1, xy2)
+    torch.cuda.synchronize()
+    after = (cuda_point.LAUNCHES["add_mixed_g1"], cuda_point.LAUNCH_SIZES["add_mixed_g1"][size])
+    assert after == (before[0] + 1, before[1] + 1)
+    for x, y in zip(got, plain):
+        assert torch.equal(x, y)
+    m = min(n, len(lhs))
+    head = tuple(x[:, :m].contiguous() for x in got)
+    assert codec.g1_from_device(c, g, head) == [add(x, y) for x, y in zip(lhs[:m], rhs[:m])]
+
+
 @pytest.mark.parametrize("curve,c,windows,lanes", [("bn254", 12, 22, 3), ("bls12_381", 16, 16, 1)])
 @pytest.mark.parametrize("group", ["g1", "g2"])
 def test_horner_kernel_matches_plain(dev, curve, group, c, windows, lanes):
