@@ -38,7 +38,11 @@ Phases, each printing one JSON line:
             launch gaps drop out) beside the launch floor (an empty
             kernel); K6 and K7 the same way, and K6 in each of its two
             forms (the word kernel at two occupancies) timed at 2^16-2^20
-            points in rounds of turns;
+            points in rounds of turns; the scalar multiplication of the
+            device assembly at its shapes (3 and 2 G1 lanes, 1 G2 lane, the
+            curve order's bits) and at 33 and 4,101 lanes of 64 bits (a
+            lane of zeros, one of ones, the others random), each timed
+            and its time a chain addition printed beside Horner's;
   reference the prove of a 2^6 DummyCircuit on the card against the exact
             prover, coordinate for coordinate;
   main_path TorchProver(pk, matrices) on cuda with the default fused MSM
@@ -57,6 +61,18 @@ Phases, each printing one JSON line:
             their plain versions at the most points of one of their
             launches there, and K6's two forms timed at the points of each
             of its launches there;
+  batch     prove_batch of 4 proofs of the same 2^16 assignment with
+            distinct r and s (bench.py's batch_prove keys, against steady
+            single proves), counted, timed with its peak memory, profiled,
+            then counted on the capture path; proofs 0 and 3 equal single
+            proves, all verify; on each MSM path a batch dispatched under
+            torch.cuda.set_sync_debug_mode("error") (no host sync from the
+            first dispatch to the fetch);
+  device_assembly  prove(host_assembly=False) at 2^16, counted (the
+            scalar multiplication must launch), equal to the host-assembly
+            proof; the device assembly alone timed, counted and profiled
+            beside the host assembly, to_affine alone; ProofStream(depth=2)
+            over 4 jobs yields the host-assembly proofs in order;
   device_setup  protocol.generator_torch.setup_device of the same 2^16 bn254
             circuit with the same seed, counters set to 0 just before and read
             just after (K1, K4, K5 must launch): its key must equal the exact
@@ -66,8 +82,10 @@ Phases, each printing one JSON line:
             query recomputed on the host from the scalars the device built,
             the L = 26 builds of K4-K7 (K4, K5 and K6 with the checks and
             the sweep of the kernels phase, K6's forms too), of the Horner
-            kernel and of K2/K3 (at this prove's shapes, every step, and
-            timed over the S sweep SCAN_SWEEP) against their plain versions,
+            kernel, of K2/K3 (at this prove's shapes, every step, and
+            timed over the S sweep SCAN_SWEEP) and of the scalar
+            multiplication (the kernels phase's shapes) against their
+            plain versions,
             then TorchProver on cuda: one prove with the counters set to 0 just
             before and read just after (K1-K5 and the Horner kernels must
             launch, no plain version on the card; K4/K5's launches by points
@@ -76,7 +94,10 @@ Phases, each printing one JSON line:
             launches), 2 steady prove_encoded_host
             calls, the last one phase-timed, and one under torch.profiler
             (the busy share, and the device time of each of the port's
-            kernels), the proves over the segment sweep, then the capture
+            kernels), the proves over the segment sweep, the device
+            assembly with the first prove's r and s (counted; its proof
+            equal to the fused one; the assembly alone timed beside the
+            host's), then the capture
             scan on the same key with the first prove's r and s (counted,
             phase-timed and profiled, its proofs equal to the fused one, K6
             and K7 held against their plain versions at its widest
@@ -239,12 +260,18 @@ def phase_card():
         for n, r in reports.items() if n == "mont_mul" or "_mixed_" in n
         for k, v in ptxas_summary(r["ptxas"]).items()
     }})
+    # the scalar multiplication beside Horner, its sibling on the group body
+    emit({"phase": "card", "scalar_mul_horner_ptxas": {
+        f"{n}: {kernel_name(k)}": v
+        for n, r in reports.items() if "_full_" in n
+        for k, v in ptxas_summary(r["ptxas"]).items() if "scalar_mul" in k or "horner" in k
+    }})
 
 
 def kernel_name(mangled: str) -> str:
     """"point_add_group_kernel<18, 1, 0, 1, 0>" from a kernel's mangled
     name (template arguments in order; bools as 0 and 1)."""
-    m = re.search(r"((?:mont_mul|point_add_group|point_add_words)_kernel)I((?:L[a-z]n?\d+E)+)E", mangled)
+    m = re.search(r"((?:mont_mul|point_add_group|point_add_words|horner|scalar_mul)_kernel)I((?:L[a-z]n?\d+E)+)E", mangled)
     if not m:
         return mangled
     args = [a.replace("n", "-") for a in re.findall(r"L[a-z](n?\d+)E", m.group(2))]
@@ -499,6 +526,7 @@ def phase_kernels(pk, matrices, device):
     _add_sweep(lambda g: _key_points(dpk, g), c, device, ("add_g1", "add_g2", "add_mixed_g1", "add_mixed_g2"))
     _k6_forms(lambda g: _key_points(dpk, g), c, device)
     entries.update(_horner_kernels(_prove_horner_shapes(dpk), c, device))
+    entries.update(_scalar_mul_kernels(lambda g: _key_points(dpk, g), c, device, entries, 0x5CA1))
     entries.update(_scan_kernels(dpk, c, rng, device))
     return entries
 
@@ -866,7 +894,7 @@ def _horner_kernels(shapes, c, device):
             ms, _ = queued_ms(lambda: g.horner(sums, plan.c))
             adds = lanes * W * (plan.c + 1)
             calls.append({"lanes": lanes, "msm_points": n, "c": plan.c, "windows": W, "adds": adds,
-                          "ms": ms, "plain_ms": plain_ms,
+                          "ms": ms, "ms_per_chain_addition": ms / (W * (plan.c + 1)), "plain_ms": plain_ms,
                           **bound(3 * D * L * 4 * lanes * (W + 1), adds * point_add_u32_ops(L, D == 2, mixed=False))})
         row = {"kernel": name, "curve": c.name, "tolerance": 0, "max_abs_err": err, "calls": calls,
                **{key: sum(x[key] for x in calls) for key in ("ms", "plain_ms", "bound_ms", "bound_published_ms")},
@@ -875,7 +903,89 @@ def _horner_kernels(shapes, c, device):
         entries[name] = {
             "name": name, "route": "cuda", "source": "groth16_tpu_torch/csrc/point_add.cu",
             "replaces": POINT_KERNELS[f"add_g{D}"][3], **_kline(row),
+            "ms_per_chain_addition": [x["ms_per_chain_addition"] for x in calls],
         }
+    return entries
+
+
+# lanes at which the scalar multiplication is checked and timed beside the
+# device assembly's own shapes, and their bits: random, with a lane of
+# zeros and a lane of ones, so one warp's lanes take different bits (64 of
+# them: the plain version's run takes seconds at the curve order's width)
+SCALAR_MUL_LANES = (33, 4101)
+SCALAR_MUL_LANE_BITS = 64
+
+
+def _scalar_mul_kernels(src_of, c, device, horner, seed):
+    """The scalar-multiplication kernel against its plain version (the
+    select loop of additions it replaces, on the card), digit for digit:
+    at the device assembly's shapes, G1 [r, s, rs] (3 lanes) and [s, r]
+    (2 lanes) and G2 s (1 lane), with a random r and s (the curve order's
+    width, its top bits zero where the scalars are shorter), and at
+    SCALAR_MUL_LANES lanes of SCALAR_MUL_LANE_BITS bits (lane 2
+    infinity); each timed
+    (queued_ms) beside its bound, and its time a chain addition (the
+    launch's sequential additions) beside Horner's (`horner`: this
+    curve's Horner entries).  src_of(g): the points the inputs come from.
+    Returns the kernels-line entries (the 3-lane G1 and the G2 shapes)."""
+    import numpy as np
+    import torch
+
+    from groth16_tpu_torch.curves import codec, cuda_point
+    from groth16_tpu_torch.fields.spec import make_spec
+    from groth16_tpu_torch.protocol.prover_torch import scalar_bits
+    from groth16_tpu_torch.utils.profiling import point_add_u32_ops
+
+    rng = np.random.default_rng(seed)
+    r, s = (int.from_bytes(rng.bytes(40), "little") % c.r for _ in range(2))
+    asm = scalar_bits([r, s, r * s % c.r], device)
+    asm = torch.nn.functional.pad(asm, (0, c.r.bit_length() - asm.shape[1]))
+    L = make_spec(c.p).n_limbs
+    entries = {}
+    for name, g in (("scalar_mul_g1", codec.g1_ops(c)), ("scalar_mul_g2", codec.g2_ops(c))):
+        D = g.k.tower_deg
+        plain_ops = cuda_point._plain_ops(g.k.spec, getattr(g.k, "nr_int", None))
+        src = src_of(g)
+        finite = torch.nonzero(~g.is_infinity(src)).reshape(-1)
+        shapes = [("assembly [r, s, rs]", asm), ("assembly [s, r]", torch.stack([asm[1], asm[0]]))]
+        if D == 2:
+            shapes = [("assembly s", asm[1:2])]
+        for lanes in SCALAR_MUL_LANES:
+            b = rng.integers(0, 2, (lanes, SCALAR_MUL_LANE_BITS), dtype=np.int32)
+            b[0], b[1] = 0, 1
+            shapes.append((f"{lanes} lanes", torch.from_numpy(b).to(device)))
+        for label, bits in shapes:
+            lanes, nbits = bits.shape
+            idx = finite[torch.arange(lanes, device=device) % finite.numel()]
+            A = tuple(x[..., idx].contiguous() for x in src)
+            pts = cuda_point.add_plain(plain_ops, g.b3_val, A, tuple(torch.roll(x, 7, dims=-1) for x in A))
+            if lanes > 3:
+                inf = g.infinity((1,), device=device)
+                pts = tuple(torch.cat([x[..., :2], i, x[..., 3:]], dim=-1) for x, i in zip(pts, inf))
+            run = lambda: g.scalar_mul_bits(pts, bits)  # noqa: E731
+            got = run()
+            want, plain_ms = timed_once(lambda: cuda_point.scalar_mul_plain(plain_ops, g.b3_val, pts, bits))
+            torch.cuda.synchronize()
+            if not all(torch.equal(x, y) for x, y in zip(got, want)):
+                raise AssertionError(f"{name} on {c.name} ({label}, {nbits} bits): kernel and plain version disagree")
+            ms, _ = queued_ms(run)
+            # the additions the data needs: one a set bit, and a doubling a
+            # bit but the last; the launch's chain: the doublings and the
+            # bits any lane takes
+            adds = int(bits.sum()) + lanes * (nbits - 1)
+            chain = nbits - 1 + int(bits.any(dim=0).sum())
+            row = {"kernel": name, "curve": c.name, "shape": label, "lanes": lanes, "nbits": nbits,
+                   "tolerance": 0, "max_abs_err": max_abs_err(got, want), "ms": ms, "plain_ms": plain_ms,
+                   "additions": adds, "chain_additions": chain, "ms_per_chain_addition": ms / chain,
+                   "horner_ms_per_chain_addition": horner[f"horner_g{D}"]["ms_per_chain_addition"],
+                   **bound((6 * D * L + nbits) * 4 * lanes, adds * point_add_u32_ops(L, D == 2, mixed=False)),
+                   "card": card_line()}
+            emit({"phase": "kernels", **row})
+            if label in ("assembly [r, s, rs]", "assembly s"):
+                entries[name] = {
+                    "name": name, "route": "cuda", "source": "groth16_tpu_torch/csrc/point_add.cu",
+                    "replaces": "groth16_tpu/curves/point.py:367", **_kline(row),
+                }
     return entries
 
 
@@ -1034,7 +1144,7 @@ def _scan_kernels(dpk, c, rng, device):
 
 # the device name of a prove's kernel from csrc/ (the profiler's demangled
 # name: "void (anonymous namespace)::point_add_group_kernel<26, 1, 0>(...)")
-PORT_KERNEL = r"void \(anonymous namespace\)::((?:mont_mul|point_add_words|point_add_group|horner|suffix_scan)_kernel<[^>]*>)"
+PORT_KERNEL = r"void \(anonymous namespace\)::((?:mont_mul|point_add_words|point_add_group|horner|scalar_mul|suffix_scan)_kernel<[^>]*>)"
 
 
 def profile_prove(prove) -> dict:
@@ -1273,6 +1383,212 @@ def phase_capture_path(prover, cs, first):
     return launches
 
 
+BATCH = 4  # bench.py's batch of 2^16 proofs
+BATCH_ROUNDS = 3
+ASSEMBLY_KERNELS = ("mont_mul", "add_g1", "add_g2", "scalar_mul_g1", "scalar_mul_g2")
+
+
+def _verify_all(vk, proofs, what):
+    """Every proof verifies with public input 15 and fails with 16."""
+    from groth16_tpu_torch.protocol.verifier import prepare_verifying_key, verify_proof
+
+    pvk = prepare_verifying_key(vk)
+    for i, proof in enumerate(proofs):
+        if not verify_proof(pvk, proof, [15]):
+            raise AssertionError(f"{what} proof {i} does not verify")
+        if verify_proof(pvk, proof, [16]):
+            raise AssertionError(f"{what} proof {i} verifies with a wrong public input")
+
+
+def _same(a, b) -> bool:
+    return (a.a, a.b, a.c) == (b.a, b.b, b.c)
+
+
+def phase_batch(prover, vk, cs, rng):
+    """prove_batch of BATCH proofs of the 2^16 assignment with distinct r
+    and s (bench.py's batch_prove): the first batch counted (the fused
+    path's kernels must launch), then BATCH_ROUNDS rounds of a steady
+    single prove (prove_encoded_host, bench.py's single wall), a single
+    prove with its encoding (prove) and a batch, in turns, with the peak
+    memory over them, then a profiled batch; bench.py's keys from the
+    least single and batch walls.  Proofs 0 and BATCH - 1 of the last
+    timed batch must equal single proves with the same r and s, and every
+    proof verify.  Then one counted batch on the capture path (its proofs
+    equal the fused batch's), and on each path a batch dispatched under
+    torch.cuda.set_sync_debug_mode("error"): nothing from the first
+    dispatch to the fetch may wait for the card."""
+    import torch
+
+    from groth16_tpu_torch.config import configure
+    from groth16_tpu_torch.curves.params import get_curve
+    from groth16_tpu_torch.protocol.prover_torch import fetch
+
+    c = get_curve(CURVE)
+    z = cs.full_assignment()
+    z_enc = prover.encode_assignment(z)
+
+    def draw():
+        return [rng.field_element(c.r) for _ in range(BATCH)], [rng.field_element(c.r) for _ in range(BATCH)]
+
+    zero_counts()
+    rs, ss = draw()
+    t0 = time.time()
+    proofs = prover.prove_batch([z] * BATCH, rs, ss)
+    first_s = time.time() - t0
+    launches = read_counts(MAIN_KERNELS)
+    walls = {"single": [], "single_with_encode": [], "batch": []}
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(BATCH_ROUNDS):
+        r, s = rng.field_element(c.r), rng.field_element(c.r)
+        t0 = time.time()
+        prover.prove_encoded_host(z_enc, r, s)
+        walls["single"].append(time.time() - t0)
+        t0 = time.time()
+        prover.prove(z, r, s)
+        walls["single_with_encode"].append(time.time() - t0)
+        rs, ss = draw()
+        t0 = time.time()
+        timed = prover.prove_batch([z] * BATCH, rs, ss)
+        walls["batch"].append(time.time() - t0)
+        proofs += timed
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for i in (0, BATCH - 1):
+        if not _same(timed[i], prover.prove(z, rs[i], ss[i])):
+            raise AssertionError(f"batch proof {i} differs from the single prove with its r and s")
+    r3, s3 = draw()
+    profiled, prof = profile_prove(lambda: prover.prove_batch([z] * BATCH, r3, s3))
+    if prof["device_busy_s"] is not None:
+        prof["device_busy_share"] = prof["device_busy_s"] / prof["profiled_wall_s"]
+    with configure(msm_fused_scan=False):
+        zero_counts()
+        t0 = time.time()
+        capture = prover.prove_batch([z] * BATCH, rs, ss)
+        capture_s = time.time() - t0
+        capture_launches = read_counts(CAPTURE_KERNELS)
+    if not all(_same(a, b) for a, b in zip(capture, timed)):
+        raise AssertionError("the capture-scan batch differs from the fused-scan batch")
+    unsynced = {}
+    for fused in (True, False):
+        with configure(msm_fused_scan=fused):
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                accs = prover.dispatch_batch([z] * BATCH)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            fetch([x for acc4, b2 in accs for x in acc4 + b2])
+            unsynced["fused" if fused else "capture"] = True
+    _verify_all(vk, proofs + profiled + capture, "batch")
+    wall, t_batch = min(walls["single"]), min(walls["batch"])
+    emit({
+        "phase": "batch", "curve": CURVE, "log_n": LOG_N,
+        "batch_prove": {"batch": BATCH, "proofs_per_s": BATCH / t_batch, "batch_wall_s": t_batch,
+                        "per_proof_vs_single": t_batch / BATCH / wall, "first_call_s": first_s},
+        "per_proof_vs_single_with_encode": t_batch / BATCH / min(walls["single_with_encode"]),
+        "walls_s_in_turns": walls, "peak_mem_gib": peak, "profile": prof,
+        "launches_per_batch": launches, "capture_batch_s": capture_s,
+        "capture_launches_per_batch": capture_launches,
+        "no_host_sync_from_dispatch_to_fetch": unsynced, "equal_to_single_proves": [0, BATCH - 1],
+        "capture_equal_to_fused": True, "proofs_verified": len(proofs) + 2 * BATCH,
+        "wrong_input_rejected": True, "card": card_line(),
+    })
+    return {"batch": launches, "batch_capture": capture_launches}
+
+
+def _device_assembly(prover, z_enc, r, s):
+    """The witness map and MSMs of one prove, then, timed apart, the host
+    assembly (`_assemble`: one fetch, the exact engine) and the device
+    assembly (`assembly_phase`, counted, then profiled) of the same
+    accumulators, and to_affine of the assembly's shapes (2 G1 points, 1
+    G2 point) alone, counted and timed.  Returns the numbers and the two
+    proofs."""
+    import torch
+
+    from groth16_tpu_torch.curves import codec
+    from groth16_tpu_torch.fields import cuda_fp
+    from groth16_tpu_torch.protocol import prover_torch as pt
+
+    dpk, rr = prover.dpk, prover.c.r
+    acc4, b2 = pt.msm_phases(dpk, z_enc)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    host = prover._assemble(acc4, b2, r, s)
+    host_s = time.time() - t0
+    bits = pt.scalar_bits([r, s, r * s % rr], prover.device)
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.time()
+    out = pt.assembly_phase(dpk, acc4, b2, bits)
+    torch.cuda.synchronize()
+    device_s = time.time() - t0
+    launches = read_counts(ASSEMBLY_KERNELS)
+    device = pt.decode_proof_arrays(prover.curve, out)
+    _, prof = profile_prove(lambda: pt.assembly_phase(dpk, acc4, b2, bits))
+    g1, g2 = codec.g1_ops(prover.c), codec.g2_ops(prover.c)
+    to_affine = {}
+    for name, g, pts in (("g1_2_points", g1, tuple(x[..., :2] for x in acc4)),
+                         ("g2_1_point", g2, tuple(x[..., None] for x in b2))):
+        g.to_affine(pts)
+        torch.cuda.synchronize()
+        before = cuda_fp.LAUNCHES["mont_mul"]
+        t0 = time.time()
+        g.to_affine(pts)
+        torch.cuda.synchronize()
+        to_affine[name] = {"s": time.time() - t0, "k1_launches": cuda_fp.LAUNCHES["mont_mul"] - before}
+    return {"host_assembly_s": host_s, "device_assembly_s": device_s, "device_assembly_launches": launches,
+            "device_assembly_profile": prof, "to_affine": to_affine}, host, device
+
+
+def phase_device_assembly(prover, vk, cs, rng):
+    """The device assembly at 2^16: prove(host_assembly=False), counted
+    (the fused path's kernels and the scalar multiplication must launch),
+    equal to the host-assembly proof for the same r and s; the assembly
+    alone timed and counted beside the host assembly (_device_assembly);
+    ProofStream(depth=2) over 4 jobs yields the host-assembly proofs of
+    the same r and s in order."""
+    import torch
+
+    from groth16_tpu_torch.curves.params import get_curve
+    from groth16_tpu_torch.par.batch_pp import ProofStream
+    from groth16_tpu_torch.protocol.prover_torch import decode_proof_arrays
+    from groth16_tpu_torch.utils.profiling import PhaseTimer
+
+    c = get_curve(CURVE)
+    z = cs.full_assignment()
+    r, s = rng.field_element(c.r), rng.field_element(c.r)
+    zero_counts()
+    t0 = time.time()
+    dev = prover.prove(z, r, s, host_assembly=False)
+    prove_s = time.time() - t0
+    launches = read_counts(MAIN_KERNELS + ("scalar_mul_g1", "scalar_mul_g2"))
+    if not _same(dev, prover.prove(z, r, s)):
+        raise AssertionError("the device-assembled proof differs from the host-assembled one")
+    z_enc = prover.encode_assignment(z)
+    timer = PhaseTimer(verbose=False, device="cuda")
+    r2, s2 = rng.field_element(c.r), rng.field_element(c.r)
+    timed = prover.prove_encoded(z_enc, r2, s2, timer=timer)
+    nums, host, assembled = _device_assembly(prover, z_enc, r2, s2)
+    if not (_same(host, assembled) and _same(assembled, decode_proof_arrays(CURVE, timed))):
+        raise AssertionError("the device assembly differs from the host assembly")
+    jobs = [(z, rng.field_element(c.r), rng.field_element(c.r)) for _ in range(4)]
+    want = prover.prove_batch([z] * 4, [j[1] for j in jobs], [j[2] for j in jobs])
+    torch.cuda.synchronize()
+    t0 = time.time()
+    streamed = list(ProofStream(prover, depth=2).prove_all(jobs))
+    stream_s = time.time() - t0
+    if not all(_same(a, b) for a, b in zip(streamed, want)) or len(streamed) != 4:
+        raise AssertionError("ProofStream's proofs differ from the host-assembly proofs of the same r and s")
+    _verify_all(vk, [dev, assembled] + streamed, "device-assembly")
+    emit({
+        "phase": "device_assembly", "curve": CURVE, "log_n": LOG_N, "prove_s": prove_s,
+        "launches_per_prove": launches, "equal_to_host_assembly": True, "phases_s": timer.as_dict(),
+        **nums, "proof_stream": {"depth": 2, "jobs": 4, "wall_s": stream_s, "proofs_per_s": 4 / stream_s,
+                                 "in_order_equal_to_host_assembly": True},
+        "card": card_line(),
+    })
+    return {"device_assembly": launches}
+
+
 def phase_device_setup(pk_exact):
     """setup_device of the 2^16 bn254 circuit with the exact setup's seed:
     the same key, through K1, K4 and K5."""
@@ -1406,6 +1722,7 @@ def phase_bls(device):
     rows = {**_point_kernels(prover.dpk, c, N_KERNEL, device, mixed=(False, True)),
             **_horner_kernels(_prove_horner_shapes(prover.dpk), c, device),
             **_scan_kernels(prover.dpk, c, krng, device)}
+    rows.update(_scalar_mul_kernels(lambda g: _key_points(prover.dpk, g), c, device, rows, 0x5CA2))
     _add_sweep(lambda g: _key_points(prover.dpk, g), c, device, ("add_g1", "add_g2", "add_mixed_g1"))
     _k6_forms(lambda g: _key_points(prover.dpk, g), c, device)
     rng = Rng(0xB16)
@@ -1463,6 +1780,22 @@ def phase_bls(device):
     out["steady_prove_s_by_segment_steps"] = by_steps
     out["card"] = card_line()
     _step(out, "prove")
+    # the device assembly with the first prove's r and s: its proof must
+    # equal the fused host-assembly one
+    zero_counts()
+    t0 = time.time()
+    dev = prover.prove(z, *first, host_assembly=False)
+    out["device_assembly_prove_s"] = time.time() - t0
+    assembly = read_counts(MAIN_KERNELS + ("scalar_mul_g1", "scalar_mul_g2"))
+    if not _same(dev, proofs[0]):
+        raise AssertionError("the 2^20 device-assembled proof differs from the host-assembled one")
+    proofs.append(dev)
+    out["device_assembly_launches_per_prove"] = assembly
+    nums, host, assembled = _device_assembly(prover, z_enc, *first)
+    if not (_same(host, proofs[0]) and _same(assembled, proofs[0])):
+        raise AssertionError("the 2^20 device assembly differs from the host assembly")
+    out["device_assembly"] = {**nums, "equal_to_host_assembly": True, "card": card_line()}
+    _step(out, "device_assembly")
     capture, capture_proofs = _bls_capture(out, prover, z_enc, first, proofs[0], c, device)
     proofs += capture_proofs
     t0 = time.time()
@@ -1478,7 +1811,8 @@ def phase_bls(device):
     out.update(proofs_verified=len(proofs), wrong_input_rejected=True)
     out.pop("_seen")
     emit(out)
-    return {"bls12_381_2p20": launches, "bls12_381_2p20_capture": capture}, rows
+    return {"bls12_381_2p20": launches, "bls12_381_2p20_device_assembly": assembly,
+            "bls12_381_2p20_capture": capture}, rows
 
 
 def _bls_capture(out, prover, z_enc, first, want, c, device):
@@ -1543,6 +1877,7 @@ def main() -> int:
     phase_reference(device)
     prover, launches, first = phase_main_path(pk, vk, cs, rng, device)
     capture = phase_capture_path(prover, cs, first)
+    paths = {**phase_batch(prover, vk, cs, rng), **phase_device_assembly(prover, vk, cs, rng)}
     del prover
     setup = phase_device_setup(pk)
     del pk, vk, cs
@@ -1550,11 +1885,13 @@ def main() -> int:
     kernels = []
     for name, e in entries.items():
         by_path = {"main": launches.get(name, 0), "capture": capture.get(name, 0),
+                   **{p: n.get(name, 0) for p, n in paths.items()},
                    "setup": setup.get(name, 0), **{p: n.get(name, 0) for p, n in bls.items()}}
         if name in bls_rows:
             e = dict(e, bls12_381={k: v for k, v in bls_rows[name].items() if k not in e or e[k] != v})
         # the main path's launches, else those of the first path that ran it
-        # (K6/K7: the capture scan)
+        # (K6/K7: the capture scan; the scalar multiplication: the device
+        # assembly)
         path = next((p for p, n in by_path.items() if n), "main")
         kernels.append(dict(e, launches=by_path[path], path=path, launches_by_path=by_path))
     kernels += list(ubench_entries.values())

@@ -44,6 +44,11 @@
 //                          in one launch: per window from the top c
 //                          doublings add(P, P) and one add of S_w, each the
 //                          group body, the running point in shared memory.
+//   scalar_mul_kernel      bits * P for every lane in one launch (the proof
+//                          assembly's r, s and rs multiples: 1-3 points of
+//                          ~255 bits): the double-and-add select loop,
+//                          each add the group body; the add runs where any
+//                          point of the warp takes the bit.
 //   point_add_words_kernel K6, one thread per point: every K6 launch of a
 //                          prove carries thousands of points (the capture
 //                          scan's steps), so its cost is throughput.  The
@@ -506,6 +511,87 @@ __global__ void __launch_bounds__(32 * kGroupWarps, 4)
   }
 }
 
+constexpr int kScalarWarps = 2;  // warps a block of the scalar multiplication
+
+// A point's shared words in the scalar multiplication: the group body's,
+// then the running sum (ACC) and the doubled base (BASE), 3 elements each.
+template <int L, int D>
+struct ScalarGroup {
+  using G = Group<L, D>;
+  static constexpr int ACC = G::WORDS, BASE = G::WORDS + 3 * G::E;
+  static constexpr int WORDS = G::WORDS + 6 * G::E;
+};
+
+// res[l] = bits[l] * P[l] for every lane, bits[l] nbits little-endian:
+// from acc = (0 : 1 : 0) and base = P, for each bit i acc = add(acc, base)
+// where bit i is set, then base = add(base, base); each add the group body.
+// group_add synchronises the warp, so the warp runs acc + base when any of
+// its points takes bit i, and a point whose bit is clear keeps its acc: the
+// digits are those of the select loop (CurveDevice.scalar_mul_bits).  The
+// last doubling feeds nothing and is left out.  p planes [*coords, lanes],
+// bits int32 [lanes, nbits].
+template <int L, int D, int NR>
+__global__ void __launch_bounds__(32 * kScalarWarps, 8)
+    scalar_mul_kernel(const uint32_t* __restrict__ px, const uint32_t* __restrict__ py,
+                      const uint32_t* __restrict__ pz, const int32_t* __restrict__ bits,
+                      uint32_t* __restrict__ rx, uint32_t* __restrict__ ry,
+                      uint32_t* __restrict__ rz, long long lanes, int nbits,
+                      const uint32_t* __restrict__ consts, uint32_t n0) {
+  using G = Group<L, D>;
+  using SG = ScalarGroup<L, D>;
+  __shared__ uint32_t smem[kScalarWarps * G::PER_WARP * SG::WORDS];
+  const long long first =
+      ((long long)blockIdx.x * kScalarWarps + threadIdx.x / 32) * G::PER_WARP;
+  if (first >= lanes) return;  // the whole warp
+  const int lane = threadIdx.x % 32, gp = lane / G::LANES;
+  const bool live = gp < G::PER_WARP && first + gp < lanes;
+  uint32_t* s = smem + (threadIdx.x / 32 * G::PER_WARP + (gp < G::PER_WARP ? gp : 0)) * SG::WORDS;
+  const int t = live ? lane % G::LANES : -1;
+  const long long l = first + gp;
+  Consts<L> k{consts, n0};
+  if (t >= 0) {
+    for (int w = t; w < D * L; w += G::LANES) {
+      const int j = w / D, cc = w % D, o = cc * G::LP + j;
+      s[SG::ACC + X1 * G::E + o] = 0;
+      s[SG::ACC + Y1 * G::E + o] = cc == 0 ? k.one(j) : 0;
+      s[SG::ACC + Z1 * G::E + o] = 0;
+    }
+    load_elem<L, D>(s + SG::BASE + 0 * G::E, px, lanes, l, t);
+    load_elem<L, D>(s + SG::BASE + 1 * G::E, py, lanes, l, t);
+    load_elem<L, D>(s + SG::BASE + 2 * G::E, pz, lanes, l, t);
+    load_b3<L, D>(s, t, k);
+  }
+  __syncwarp();
+  // step 2i: acc + base for bit i; step 2i + 1: base + base.  One call
+  // site of the group body, so its code is inlined once.
+  bool take = false;
+#pragma unroll 1
+  for (int step = 0; step < 2 * nbits - 1; step++) {
+    const bool dbl = step % 2;
+    if (!dbl) {
+      take = t >= 0 && (__ldg(bits + l * nbits + step / 2) & 1);
+      if (!__any_sync(0xffffffffu, take)) continue;  // no point of the warp takes the bit
+    }
+    const int from = dbl ? SG::BASE : SG::ACC;
+    if (t >= 0) {
+      for (int x = t; x < 3 * G::E; x += G::LANES) {
+        s[X1 * G::E + x] = s[from + x];
+        s[X2 * G::E + x] = s[SG::BASE + x];
+      }
+    }
+    __syncwarp();
+    group_add<L, D, NR>(s, t, k);
+    if (dbl ? t >= 0 : take)
+      for (int x = t; x < 3 * G::E; x += G::LANES) s[from + x] = s[X1 * G::E + x];
+    __syncwarp();
+  }
+  if (t >= 0) {
+    store_elem<L, D>(rx, lanes, l, s + SG::ACC + 0 * G::E, t);
+    store_elem<L, D>(ry, lanes, l, s + SG::ACC + 1 * G::E, t);
+    store_elem<L, D>(rz, lanes, l, s + SG::ACC + 2 * G::E, t);
+  }
+}
+
 // -- K6 on words -------------------------------------------------------------------
 
 constexpr int kWordThreads = 128;
@@ -679,6 +765,19 @@ extern "C" int g16_horner(const void* sx, const void* sy, const void* sz, void* 
                                             (cudaStream_t)stream>>>(
       (const uint32_t*)sx, (const uint32_t*)sy, (const uint32_t*)sz, (uint32_t*)rx,
       (uint32_t*)ry, (uint32_t*)rz, lanes, windows, c, (const uint32_t*)consts, n0);
+  return (int)cudaGetLastError();
+}
+
+// bits[l] * P[l] for `lanes` points, bits int32 [lanes, nbits] little-endian.
+extern "C" int g16_scalar_mul(const void* px, const void* py, const void* pz, const void* bits,
+                              void* rx, void* ry, void* rz, long long lanes, int nbits,
+                              const void* consts, unsigned n0, void* stream) {
+  constexpr int per_block = kScalarWarps * Group<G16_LIMBS, G16_D>::PER_WARP;
+  long long blocks = (lanes + per_block - 1) / per_block;
+  scalar_mul_kernel<G16_LIMBS, G16_D, G16_NR><<<(unsigned)blocks, 32 * kScalarWarps, 0,
+                                                (cudaStream_t)stream>>>(
+      (const uint32_t*)px, (const uint32_t*)py, (const uint32_t*)pz, (const int32_t*)bits,
+      (uint32_t*)rx, (uint32_t*)ry, (uint32_t*)rz, lanes, nbits, (const uint32_t*)consts, n0);
   return (int)cudaGetLastError();
 }
 #endif

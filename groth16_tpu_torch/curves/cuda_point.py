@@ -1,5 +1,6 @@
 """CUDA kernels K4-K7 — complete point additions — the MSM's Horner
-chain, and their plain versions.
+chain, the proof assembly's scalar multiplication, and their plain
+versions.
 
 Counterpart of `groth16_tpu/curves/pallas_point.py`:
 
@@ -10,11 +11,15 @@ Counterpart of `groth16_tpu/curves/pallas_point.py`:
   horner_g1/g2  the Horner chain of `msm/pippenger.py` (a Python loop of
                 K4/K5 launches before; the JAX package's `fori_loop` of
                 `CurveDevice.add` at groth16_tpu/msm/pippenger.py:660)
+  scalar_mul_g1/g2  per-lane double-and-add of the proof assembly (the
+                JAX package's `fori_loop` of `CurveDevice.add` in
+                `scalar_mul_bits`, groth16_tpu/curves/point.py:367)
 
 One CUDA kernel body per formula (csrc/point_add.cu: rcb_add<F>,
 rcb_add_mixed<F>, and K6's rcb_add_mixed_w) templated on the coordinate
 field.  The full addition
-(K4/K5), the G2 mixed addition (K7) and the Horner chain run on a group
+(K4/K5), the G2 mixed addition (K7), the Horner chain and the scalar
+multiplication run on a group
 of lanes per point (6 for G1, 24 for G2), each of the formula's three
 product stages one product a lane: most launches of a prove carry a few
 points, where one addition's latency is the launch's time.  The G1 mixed
@@ -28,7 +33,8 @@ Coordinates are limb-major `int32[L, N]` (G1) or `int32[L, 2, N]` (G2),
 Plain versions, beside each wrapper: K4/K5 run the stacked RCB path of
 `groth16_tpu/curves/point.py:CurveDevice.add`; K6/K7 transcribe
 `pallas_point.mixed_add_g1_math` and its Fp2 form; Horner is the loop of
-`msm/pippenger.py` over the plain K4/K5.  Their multiplies run the plain
+`msm/pippenger.py` over the plain K4/K5, the scalar multiplication the
+select loop of `CurveDevice.scalar_mul_bits`.  Their multiplies run the plain
 version of K1, so they are plain PyTorch on any device.  The kernels
 repeat the same operations in the same order and return the same
 digits.
@@ -58,6 +64,7 @@ from groth16_tpu_torch.fields.spec import FpSpec
 # else
 LAUNCHES = {
     "add_g1": 0, "add_g2": 0, "horner_g1": 0, "horner_g2": 0, "add_mixed_g1": 0, "add_mixed_g2": 0,
+    "scalar_mul_g1": 0, "scalar_mul_g2": 0,
 }
 # calls of the plain versions on CUDA tensors (the main path makes none)
 PLAIN_CALLS = dict.fromkeys(LAUNCHES, 0)
@@ -150,6 +157,10 @@ def _lib(n_limbs: int, deg: int, mixed: bool, nr: int):
                 ctypes.c_longlong, ctypes.c_int, ctypes.c_int, P, ctypes.c_uint, P
             ]
             lib.g16_horner.restype = ctypes.c_int
+            lib.g16_scalar_mul.argtypes = [P] * 7 + [
+                ctypes.c_longlong, ctypes.c_int, P, ctypes.c_uint, P
+            ]
+            lib.g16_scalar_mul.restype = ctypes.c_int
         lib._g16_typed = True
     return lib
 
@@ -274,6 +285,47 @@ def horner_g2(spec: FpSpec, nr: int, b3_val, sums, c: int):
     return _horner("horner_g2", spec, nr, b3_val, sums, c)
 
 
+def _scalar_mul(name, spec, nr, b3_val, pt, bits):
+    dev = _device(name, list(pt) + [bits])
+    if dev.type == "cpu":
+        return scalar_mul_plain(_plain_ops(spec, nr), b3_val, pt, bits)
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {dev}")
+    L, D = _check_kernel(name, spec, nr)
+    lead = (L,) if D == 1 else (L, 2)
+    if bits.dim() != 2:
+        raise ValueError(f"{name}: expected bits [lanes, nbits], got {tuple(bits.shape)}")
+    lanes, nbits = bits.shape
+    ins = [check_operand(x, lead, lanes, f"{name} input {i}") for i, x in enumerate(pt)]
+    if bits.dtype != torch.int32 or not bits.is_contiguous():
+        raise TypeError(f"{name}: expected contiguous int32 bits, got {bits.dtype}")
+    if nbits < 1:
+        raise ValueError(f"{name}: needs at least one bit")
+    outs = [torch.empty(lead + (lanes,), dtype=torch.int32, device=dev) for _ in range(3)]
+    if lanes == 0:
+        return tuple(outs)
+    consts = kernel_consts(spec, b3_val, dev)
+    rc = _lib(L, D, False, 0 if nr is None else nr).g16_scalar_mul(
+        *[x.data_ptr() for x in ins], bits.data_ptr(), *[o.data_ptr() for o in outs], lanes, nbits,
+        consts.data_ptr(), spec.n0inv, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+    LAUNCHES[name] += 1
+    return tuple(outs)
+
+
+def scalar_mul_g1(spec: FpSpec, b3_val: int, pt, bits):
+    """bits[l] * P[l] for each lane: points (X, Y, Z) each [L, lanes],
+    bits int32 [lanes, nbits] little-endian -> [L, lanes], in one launch."""
+    return _scalar_mul("scalar_mul_g1", spec, None, b3_val, pt, bits)
+
+
+def scalar_mul_g2(spec: FpSpec, nr: int, b3_val, pt, bits):
+    """scalar_mul_g1 over Fq2: points [L, 2, lanes] -> [L, 2, lanes]."""
+    return _scalar_mul("scalar_mul_g2", spec, nr, b3_val, pt, bits)
+
+
 # -- plain versions --------------------------------------------------------------
 
 
@@ -338,6 +390,28 @@ def horner_plain(k, b3_val, sums, c: int):
             res = add_plain(k, b3_val, res, res)
         res = add_plain(k, b3_val, res, tuple(x[..., w] for x in sums))
     return res
+
+
+def scalar_mul_plain(k, b3_val, pt, bits):
+    """Plain version of the scalar-multiplication kernel: the select loop
+    of `groth16_tpu/curves/point.py:CurveDevice.scalar_mul_bits` over the
+    plain K4/K5, from acc = (0 : 1 : 0): for each bit i, acc = add(acc,
+    base) where bits[.., i] is set, then base = add(base, base)."""
+    if bits.is_cuda:
+        PLAIN_CALLS[f"scalar_mul_g{k.tower_deg}"] += 1
+    X = pt[0]
+    lanes = X.shape[-1]
+    acc = (
+        k.zero((lanes,), device=X.device),
+        k.one((lanes,), device=X.device).contiguous(),
+        k.zero((lanes,), device=X.device),
+    )
+    base = pt
+    for i in range(bits.shape[-1]):
+        take = (bits[..., i] & 1).bool()
+        acc = tuple(torch.where(take, s, a) for s, a in zip(add_plain(k, b3_val, acc, base), acc))
+        base = add_plain(k, b3_val, base, base)
+    return acc
 
 
 def mixed_add_plain(k, b3_val, p1, xy2):

@@ -18,7 +18,9 @@ kernels K4/K5 and K6/K7 on the card, their plain versions on the CPU;
 The TPU size gates of the JAX package have no counterpart here: the
 kernels mask their own ragged edge.  `to_affine` inverts every Z of a
 batch with one Fermat inverse (fields/fp.py batch_inv, K1 products).
-The generic-a formula and scalar_mul_bits wait for later slices.
+`scalar_mul_bits` runs each lane's double-and-add in one launch of the
+scalar-multiplication kernel (its plain select loop on the CPU).  The
+generic-a formula waits for a later slice.
 """
 
 from __future__ import annotations
@@ -140,6 +142,22 @@ class CurveDevice:
             out = cuda_point.add_mixed_g2(
                 k.spec, k.nr_int, self.b3_val, flat[:3], flat[3:]
             )
+        return self._unflat(out, shape)
+
+    def scalar_mul_bits(self, pt: Point, bits: torch.Tensor) -> Point:
+        """Per-lane variable scalar multiplication: bits int32 [*batch,
+        nbits] little-endian.  The double-and-add select loop (acc =
+        add(acc, base) where the bit is set, base = add(base, base)) in one
+        kernel launch on CUDA tensors, the loop itself on CPU tensors; the
+        same digits either way."""
+        k = self.k
+        flat, shape = self._flat(list(pt))
+        n = flat[0].shape[-1]
+        bits = bits.reshape(n, bits.shape[-1]).to(torch.int32).contiguous()
+        if k.tower_deg == 1:
+            out = cuda_point.scalar_mul_g1(k.spec, self.b3_val, flat, bits)
+        else:
+            out = cuda_point.scalar_mul_g2(k.spec, k.nr_int, self.b3_val, flat, bits)
         return self._unflat(out, shape)
 
     # -- conversions -------------------------------------------------------------

@@ -1,9 +1,10 @@
 """Device prover (PyTorch): witness map and MSMs on the device, O(1)
-assembly on the host.
+assembly on the host or on the device.
 
 Port of `groth16_tpu/protocol/prover_tpu.py:TpuProver` (prove,
-prove_encoded_host, encode_assignment).  A prove runs four phases, with
-the JAX package's names:
+prove_encoded_host, prove_encoded, prove_batch, encode_assignment) and
+of its device assembly (`_assembly_jit`) and `decode_proof_arrays`.  A
+prove runs four phases, with the JAX package's names:
 
   witness_map  sparse matvecs + 7 NTTs -> h, then standard-form MSM
                scalars (qap/device.py; K1 for every Fr product)
@@ -11,18 +12,28 @@ the JAX package's names:
                (msm/pippenger.py; K2 for the bucket scans, K4 in the
                tails; K6 per scan step with msm_fused_scan=False)
   msm_g2       the G2 MSM (K3, K5; K7 on the capture path)
-  assembly     the O(1) group-op tail of prover.rs:54-132 on the exact
-               engine (protocol/prover.py), from the five MSM
-               accumulators fetched in one copy
+  assembly     the O(1) group-op tail of prover.rs:54-132: on the host's
+               exact engine (protocol/prover.py) from the five MSM
+               accumulators fetched in one copy (`prove`,
+               `prove_encoded_host`, `prove_batch`), or on the device
+               (`assembly_phase`: the r, s and rs multiples in three
+               launches of the scalar-multiplication kernel, the sums by
+               K4/K5, to_affine by K1), whose six tensors stay there
+               until `decode_proof_arrays` fetches them in one copy
+               (`prove(host_assembly=False)`, `prove_encoded`,
+               par/batch_pp.ProofStream)
 
-The prover runs on the card unless the caller passes device="cpu"
-(where every kernel runs its plain version).  prove_batch and the
-device assembly wait for a later slice.
+`prove_batch` enqueues the witness map and MSMs of every proof before
+the first fetch: nothing on that stretch waits for the card (the
+assignments go up from pinned buffers), so the host encodes proof i + 1
+while the card works on proof i.  The prover runs on the card unless the
+caller passes device="cpu" (where every kernel runs its plain version).
 """
 
 from __future__ import annotations
 
-from typing import List
+import contextlib
+from typing import List, Sequence
 
 import numpy as np
 import torch
@@ -37,6 +48,41 @@ from groth16_tpu_torch.protocol.data_structures import Proof, ProvingKey
 from groth16_tpu_torch.protocol.device_keys import DeviceProvingKey, upload_proving_key
 from groth16_tpu_torch.qap.device import witness_map_device
 from groth16_tpu_torch.r1cs.matrices import ConstraintMatrices
+
+
+def upload(host: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """A host tensor on `device` without waiting for the card: on CUDA the
+    copy runs from a pinned buffer, queued on the current stream behind
+    the work already there.  PyTorch's caching host allocator records an
+    event on the stream for each such copy and keeps the pinned block
+    from reuse until it has passed, so the buffer outlives its copy."""
+    if device.type != "cuda":
+        return host.to(device)
+    return host.pin_memory().to(device, non_blocking=True)
+
+
+def scalar_bits(values: Sequence[int], device) -> torch.Tensor:
+    """Host ints -> int32 [len(values), nbits] little-endian bits on
+    `device` (the JAX package's `scalar_bits_array`, one row a scalar).
+    nbits is the longest value's bit length: a bit above every value's top
+    leaves each running sum of the double-and-add as it is, so the digits
+    equal those of the curve order's full width."""
+    nbits = max(1, max(v.bit_length() for v in values))
+    bits = np.array([[(v >> i) & 1 for i in range(nbits)] for v in values], dtype=np.int32)
+    return upload(torch.from_numpy(bits), torch.device(device))
+
+
+def fetch(tensors) -> list:
+    """numpy copies of device tensors in ONE device-to-host copy (bool
+    tensors come back as bool)."""
+    tensors = list(tensors)
+    flat = torch.cat([x.reshape(-1).to(torch.int32) for x in tensors]).cpu().numpy()
+    out, off = [], 0
+    for x in tensors:
+        part = flat[off : off + x.numel()].reshape(tuple(x.shape))
+        out.append(part.astype(bool) if x.dtype == torch.bool else part)
+        off += x.numel()
+    return out
 
 
 def _pad_scalars(s: torch.Tensor, n_pad: int) -> torch.Tensor:
@@ -93,6 +139,96 @@ def msm_g2_phase(dpk: DeviceProvingKey, rho_std: torch.Tensor):
     """Phase 2b: the G2 MSM (b_g2_query tail)."""
     c = dpk.params
     return msm_device(codec.g2_ops(c), dpk.b_g2_tail, rho_std, c.r.bit_length())
+
+
+def assembly_phase(dpk: DeviceProvingKey, acc4, b2_acc, bits: torch.Tensor):
+    """Phase 3 on the device (`_assembly_jit`, prover.rs:54-132) and
+    to_affine; bits: int32 [3, nbits] rows r, s, rs (`scalar_bits`).
+    Returns (ax, ay, ainf, bx, by, binf): A and C as the two lanes of one
+    G1 batch, B as a one-lane G2 batch, x and y < 2p in Montgomery form."""
+    c = dpk.params
+    g1 = codec.g1_ops(c)
+    g2 = codec.g2_ops(c)
+    a_acc, b1_acc, h_acc, l_aux_acc = (g1.index(acc4, i) for i in range(4))
+
+    # batched O(1) scalar muls: [r, s, rs] * delta_g1, one launch
+    delta3 = tuple(torch.stack([x, x, x], dim=-1) for x in dpk.delta_g1)
+    rsd = g1.scalar_mul_bits(delta3, bits)
+    r_delta, s_delta, rs_delta = (g1.index(rsd, i) for i in range(3))
+
+    # calculate_coeff (prover.rs:252-270) for A, B1; B2 in G2
+    def finish(initial, q0, acc, vk_param):
+        res = g1.add(initial, q0)
+        res = g1.add(res, acc)
+        return g1.add(res, vk_param)
+
+    g_a = finish(r_delta, dpk.a0, a_acc, dpk.alpha_g1)
+    g1_b = finish(s_delta, dpk.b10, b1_acc, dpk.beta_g1)
+
+    s_delta_g2 = g2.scalar_mul_bits(dpk.delta_g2, bits[1])
+    g2_b = g2.add(g2.add(g2.add(s_delta_g2, dpk.b20), b2_acc), dpk.beta_g2)
+
+    # s*A and r*B1, batched; r == 0 makes r*B1 infinity (prover.rs:98-108)
+    ab = tuple(torch.stack([x, y], dim=-1) for x, y in zip(g_a, g1_b))
+    sab = g1.scalar_mul_bits(ab, torch.stack([bits[1], bits[0]]))
+    s_g_a, r_g1_b = g1.index(sab, 0), g1.index(sab, 1)
+
+    g_c = g1.add(s_g_a, r_g1_b)
+    g_c = g1.add(g_c, g1.neg(rs_delta))
+    g_c = g1.add(g_c, l_aux_acc)
+    g_c = g1.add(g_c, h_acc)
+
+    # A and C share one G1 batch inversion
+    ac = tuple(torch.stack([x, y], dim=-1) for x, y in zip(g_a, g_c))
+    ax, ay, ainf = g1.to_affine(ac)
+    bx, by, binf = g2.to_affine(tuple(x[..., None] for x in g2_b))
+    return (ax, ay, ainf, bx, by, binf)
+
+
+def _phase(timer, name):
+    """timer.phase(name), or no fence where there is no timer."""
+    return contextlib.nullcontext() if timer is None else timer.phase(name)
+
+
+def msm_phases(dpk: DeviceProvingKey, z_mont: torch.Tensor, timer=None):
+    """Phases 1-2 (witness map | MSMs) -> the G1 accumulators ([..., 4])
+    and the G2 one, left on the device.  timer: optional
+    utils.profiling.PhaseTimer; each phase is then fenced and timed."""
+    with _phase(timer, "witness_map"):
+        scalars_g, rho_std = witness_phase(dpk, z_mont)
+    with _phase(timer, "msm_g1_x4"):
+        acc4 = msm_g1_phase(dpk, scalars_g)
+    with _phase(timer, "msm_g2"):
+        b2_acc = msm_g2_phase(dpk, rho_std)
+    return acc4, b2_acc
+
+
+def prove_phases(dpk: DeviceProvingKey, z_mont: torch.Tensor, bits: torch.Tensor, timer=None):
+    """The full prove on the device, every intermediate left there; ->
+    assembly_phase's six tensors (timer as for msm_phases)."""
+    acc4, b2_acc = msm_phases(dpk, z_mont, timer)
+    with _phase(timer, "assembly"):
+        return assembly_phase(dpk, acc4, b2_acc, bits)
+
+
+def decode_proof_arrays(curve: str, out) -> Proof:
+    """(ax, ay, ainf, bx, by, binf) of assembly_phase -> host Proof, the
+    six tensors fetched in one copy."""
+    c = get_curve(curve)
+    ax, ay, ainf, bx, by, binf = fetch(out)
+    spec = make_spec(c.p, name=f"{curve}.Fq")
+    xs, ys = decode(ax, spec), decode(ay, spec)
+    a_pt = None if ainf[0] else (xs[0], ys[0])
+    c_pt = None if ainf[1] else (xs[1], ys[1])
+    # bx/by: [L, 2, 1] (Fp2 G2) or [L, 1] (G2 over Fq)
+    bx_v, by_v = decode(bx, spec), decode(by, spec)
+    if binf[0]:
+        b_pt = None
+    elif c.g2_over_base:
+        b_pt = (bx_v[0], by_v[0])
+    else:
+        b_pt = ((bx_v[0], bx_v[1]), (by_v[0], by_v[1]))
+    return Proof(curve=curve, a=a_pt, b=b_pt, c=c_pt)
 
 
 def _decode_proj_host(curve: str, ops, coords, idx=None):
@@ -160,39 +296,65 @@ class TorchProver:
 
     def encode_assignment(self, full_assignment: List[int]) -> torch.Tensor:
         """Host limbs in STANDARD form, Montgomery conversion on the device
-        (one wide K1 multiply)."""
+        (one wide K1 multiply); on the card the upload is queued from a
+        pinned buffer, so it does not wait for the work ahead of it."""
         std = encode(list(full_assignment), self.fr, mont=False).astype(np.int32)
-        return fp.to_mont(self.fr, torch.from_numpy(std).to(self.device))
+        return fp.to_mont(self.fr, upload(torch.from_numpy(std), self.device))
 
-    def prove(self, full_assignment: List[int], r: int, s: int, timer=None) -> Proof:
+    def prove(self, full_assignment: List[int], r: int, s: int, timer=None,
+              host_assembly: bool = True) -> Proof:
         z = self.encode_assignment(full_assignment)
-        return self.prove_encoded_host(z, r, s, timer=timer)
+        if host_assembly:
+            return self.prove_encoded_host(z, r, s, timer=timer)
+        return decode_proof_arrays(self.curve, self.prove_encoded(z, r, s, timer=timer))
 
     def prove_encoded_host(self, z_mont: torch.Tensor, r: int, s: int, timer=None) -> Proof:
-        """Device witness map + MSMs, host O(1) assembly.  timer: optional
-        utils.profiling.PhaseTimer; each phase is then fenced and timed."""
+        """Device witness map + MSMs, host O(1) assembly: the single-proof
+        path, whose accumulator fetch is its only wait for the card.
+        timer: optional utils.profiling.PhaseTimer; each phase is then
+        fenced and timed."""
+        rr = self.c.r
+        acc4, b2_acc = msm_phases(self.dpk, z_mont, timer)
+        with _phase(timer, "assembly"):
+            return self._assemble(acc4, b2_acc, r % rr, s % rr)
+
+    def prove_encoded(self, z_mont: torch.Tensor, r: int, s: int, timer=None):
+        """The whole prove on the device, assembly included: returns
+        assembly_phase's six tensors without waiting for the card (for
+        pipelined callers, par/batch_pp.ProofStream)."""
         rr = self.c.r
         r %= rr
         s %= rr
-        if timer is None:
-            scalars_g, rho_std = witness_phase(self.dpk, z_mont)
-            acc4 = msm_g1_phase(self.dpk, scalars_g)
-            b2_acc = msm_g2_phase(self.dpk, rho_std)
-            return self._assemble(acc4, b2_acc, r, s)
-        with timer.phase("witness_map"):
-            scalars_g, rho_std = witness_phase(self.dpk, z_mont)
-        with timer.phase("msm_g1_x4"):
-            acc4 = msm_g1_phase(self.dpk, scalars_g)
-        with timer.phase("msm_g2"):
-            b2_acc = msm_g2_phase(self.dpk, rho_std)
-        with timer.phase("assembly"):
-            return self._assemble(acc4, b2_acc, r, s)
+        bits = scalar_bits([r, s, r * s % rr], self.device)
+        return prove_phases(self.dpk, z_mont, bits, timer=timer)
+
+    def dispatch_batch(self, assignments) -> list:
+        """Encode, witness map and MSMs of every assignment, all enqueued
+        before any result is fetched: -> per proof (acc4, b2_acc) on the
+        device.  Nothing here waits for the card."""
+        return [msm_phases(self.dpk, self.encode_assignment(z)) for z in assignments]
+
+    def prove_batch(self, assignments, rs, ss) -> List[Proof]:
+        """B proofs by pipelined dispatch of the single-prove phases
+        (`dispatch_batch`), then ONE copy of all 5B accumulators and the
+        host assembly of each proof (_host_assembly_np).  As in the JAX
+        package, the device assembly is not used here: the batch's one
+        fetch is its only wait for the card anyway, and the host's exact
+        arithmetic takes no longer than the device assembly's ~750
+        launches (PERF.md)."""
+        rr = self.c.r
+        B = len(assignments)
+        if not len(rs) == len(ss) == B:
+            raise ValueError(f"prove_batch: {B} assignments, {len(rs)} r and {len(ss)} s")
+        accs = self.dispatch_batch(assignments)
+        parts = fetch([x for acc4, b2 in accs for x in acc4 + b2])
+        return [
+            _host_assembly_np(self.pk, tuple(parts[6 * i : 6 * i + 3]), tuple(parts[6 * i + 3 : 6 * i + 6]),
+                              rs[i] % rr, ss[i] % rr)
+            for i in range(B)
+        ]
 
     def _assemble(self, acc4, b2_acc, r, s) -> Proof:
         # one device->host copy for all five accumulators
-        flat = torch.cat([x.reshape(-1) for x in acc4 + b2_acc]).cpu().numpy()
-        parts, off = [], 0
-        for x in acc4 + b2_acc:
-            parts.append(flat[off : off + x.numel()].reshape(tuple(x.shape)))
-            off += x.numel()
+        parts = fetch(acc4 + b2_acc)
         return _host_assembly_np(self.pk, tuple(parts[:3]), tuple(parts[3:]), r, s)

@@ -1,9 +1,10 @@
 """The CUDA kernels of the port against their plain PyTorch versions, on
 the card: K1 (mont_mul), K4-K7 (point additions), the Horner kernel,
-K2/K3 (the MSM suffix scans) and V (the op-rate microbenchmark), then
-batch inversion and to_affine, a small prove through every kernel, on
-each MSM scan path, against the exact prover, and a small device setup
-against the exact setup.
+K2/K3 (the MSM suffix scans), V (the op-rate microbenchmark) and the
+scalar multiplication, then batch inversion and to_affine, a small prove
+through every kernel, on each MSM scan path, against the exact prover, a
+small device setup against the exact setup, and a small batch and device
+assembly against the exact prover.
 
 CUDA kernels have no CPU mode, so every test here needs an NVIDIA GPU and
 `nvcc` (the kernels build at first use) and skips elsewhere.  The machine
@@ -425,7 +426,8 @@ def test_prover_on_the_card_matches_the_exact_prover(dev, fused):
     counters = {**cuda_fp.LAUNCHES, **cuda_point.LAUNCHES, **cuda_scan.LAUNCHES}
     scans = ("suffix_scan_g1", "suffix_scan_g2")
     mixed = ("add_mixed_g1", "add_mixed_g2")
-    used = [k for k in counters if k not in (mixed if fused else scans)]
+    device_assembly = ("scalar_mul_g1", "scalar_mul_g2")  # host assembly here
+    used = [k for k in counters if k not in (mixed if fused else scans) + device_assembly]
     with configure(msm_fused_scan=fused):
         got = prover.prove(cs.full_assignment(), r, s)
     after = {**cuda_fp.LAUNCHES, **cuda_point.LAUNCHES, **cuda_scan.LAUNCHES}
@@ -484,3 +486,73 @@ def test_setup_device_on_the_card_matches_the_exact_setup(dev):
     after = {**cuda_fp.LAUNCHES, **cuda_point.LAUNCHES}
     assert all(after[k] > before[k] for k in ("mont_mul", "add_g1", "add_g2"))
     assert pk == setup(DummyCircuit(6, 13), "bls12_381", Rng(3))[0]
+
+
+@pytest.mark.parametrize("lanes,nbits", [(1, 255), (2, 255), (3, 254), (33, 64), (4101, 16)])
+@pytest.mark.parametrize("curve", ["bn254", "bls12_381"])
+@pytest.mark.parametrize("group", ["g1", "g2"])
+def test_scalar_mul_kernel_matches_plain(dev, curve, group, lanes, nbits):
+    """The scalar-multiplication kernel in one launch against its plain
+    version (the select loop of additions it replaces): lanes with all
+    bits zero and all one, and lanes of one warp with different bits;
+    the first lanes also against the exact engine."""
+    cv = get_curve(curve)
+    g2 = group == "g2"
+    g = (codec.g2_ops if g2 else codec.g1_ops)(cv)
+    to_dev = codec.g2_to_device if g2 else codec.g1_to_device
+    walk = _batches(curve, g2, min(lanes, 8) + 5, seed=lanes)[0][: min(lanes, 8)]
+    pts = to_dev(cv, [walk[i % len(walk)] for i in range(lanes)], dev)
+    rng = np.random.default_rng(lanes * nbits)
+    bits = rng.integers(0, 2, (lanes, nbits), dtype=np.int32)
+    bits[0] = 0
+    if lanes > 1:
+        bits[1] = 1
+    bits = torch.from_numpy(bits).to(dev)
+    name = f"scalar_mul_{group}"
+    before = cuda_point.LAUNCHES[name]
+    got = g.scalar_mul_bits(pts, bits)
+    torch.cuda.synchronize()
+    assert cuda_point.LAUNCHES[name] == before + 1
+    k = g.k
+    want = cuda_point.scalar_mul_plain(
+        cuda_point._plain_ops(k.spec, k.nr_int if g2 else None), g.b3_val, pts, bits)
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+    ref = RefGroups(curve)
+    mul = ref.g2_mul if g2 else ref.g1_mul
+    m = min(lanes, 3)
+    scalars = [int("".join(str(int(b)) for b in row.tolist()[::-1]), 2) for row in bits[:m].cpu()]
+    dec = codec.g2_from_device if g2 else codec.g1_from_device
+    first = tuple(x[..., :m] for x in got)
+    assert dec(cv, g, first) == [mul(walk[i % len(walk)], s) if s else None for i, s in enumerate(scalars)]
+
+
+@pytest.mark.parametrize("curve", ["bn254", "bls12_381"])
+def test_prove_batch_and_device_assembly_on_the_card(dev, curve):
+    """prove_batch (two proofs, one fetch) and prove(host_assembly=False)
+    (three launches of the scalar-multiplication kernel) on the card give
+    the exact prover's proofs for the same r and s."""
+    from groth16_tpu_torch.protocol.generator import setup
+    from groth16_tpu_torch.protocol.prover import create_proof_with_reduction
+    from groth16_tpu_torch.protocol.prover_torch import TorchProver
+    from groth16_tpu_torch.r1cs.circuits import DummyCircuit
+    from groth16_tpu_torch.r1cs.system import ConstraintSystem, SynthesisMode
+    from groth16_tpu_torch.utils.rng import Rng
+
+    c = get_curve(curve)
+    ncon, nvar = (1 << 6) - 2, 1 << 5
+    rng = Rng(0xBA7)
+    pk, _ = setup(DummyCircuit(nvar, ncon), curve, rng)
+    cs = ConstraintSystem(c.r, mode=SynthesisMode.PROVE)
+    DummyCircuit(nvar, ncon, a=3, b=5)(cs)
+    z = cs.full_assignment()
+    prover = TorchProver(pk, cs.to_matrices())
+    rs = [rng.field_element(c.r) for _ in range(3)]
+    ss = [rng.field_element(c.r) for _ in range(3)]
+    want = [create_proof_with_reduction(DummyCircuit(nvar, ncon, a=3, b=5), pk, r, s) for r, s in zip(rs, ss)]
+    got = prover.prove_batch([z, z], rs[:2], ss[:2])
+    before = dict(cuda_point.LAUNCHES)
+    got.append(prover.prove(z, rs[2], ss[2], host_assembly=False))
+    assert cuda_point.LAUNCHES["scalar_mul_g1"] == before["scalar_mul_g1"] + 2
+    assert cuda_point.LAUNCHES["scalar_mul_g2"] == before["scalar_mul_g2"] + 1
+    assert [(p.a, p.b, p.c) for p in got] == [(p.a, p.b, p.c) for p in want]

@@ -42,5 +42,9 @@ def test_scan_sees_the_package():
         ("protocol", "generator_torch.py"),
         ("msm", "fixed_base.py"),
         ("utils", "ubench.py"),
+        ("utils", "resume.py"),
+        ("par", "batch_pp.py"),
+        ("serde", "canonical.py"),
+        ("protocol", "absorb.py"),
     ):
         assert os.path.join("groth16_tpu_torch", *module) in names
