@@ -8,10 +8,12 @@ Run from the root of a checkout, on a machine with the card and nvcc:
 Phases, each printing one JSON line:
 
   card      the card, torch and CUDA versions; builds every CUDA kernel of
-            the bn254 and bls12_381 proves and setups and the op-rate
-            microbenchmark from groth16_tpu_torch/csrc (one nvcc per library,
-            all started together) with its registers and spills (K1's, K6's
-            and K7's on a line of their own);
+            the bn254, bls12_377 and bls12_381 proves and setups and the
+            op-rate microbenchmark from groth16_tpu_torch/csrc (one nvcc per
+            library, all started together) with its registers and spills
+            (K1's, K6's and K7's on a line of their own), and beside them the
+            verifier's native C++ engine (g++), which must load for bn254,
+            bls12_377 and bls12_381;
   ubench    kernel V (the op-rate microbenchmark) for its seven operations at
             N = 2^20, R = 2048, each held against its plain version (at R = 16
             and at R = 2048) and timed, with the SASS each compiled to and the
@@ -77,6 +79,23 @@ Phases, each printing one JSON line:
             circuit with the same seed, counters set to 0 just before and read
             just after (K1, K4, K5 must launch): its key must equal the exact
             setup's element for element;
+  bls12_377 bls12_377 (Fq2 nonresidue -5) at 2^16: the port's bench
+            (groth16_tpu_torch.bench.run) with a fresh setup on the card,
+            its line printed (its verify_engine must be "native"), 64
+            sampled points of each query of its key recomputed on the host,
+            K1 at its p and r, K4-K7, the Horner kernels, K2/K3 (at S = 1
+            and the chosen S, filled and key's rows) and the scalar
+            multiplication (the device assembly's shapes) on its key's
+            points against their plain versions (NR = -5 in K3, K5, K7,
+            Horner G2 and the G2 scalar multiplication), then one fused
+            prove counted (K1-K5 and the Horner kernels must launch, no
+            plain version on the card), a capture-scan prove (K6, K7) and a
+            device-assembled one (the scalar multiplication) with the same
+            r and s, counted, equal to the fused proof; every proof
+            verifies with public input 15 and fails with 16 (one verify
+            timed on the native and on the Python engine); one steady
+            prove profiled; a 2^6 proof equals the exact prover's on both
+            MSM paths;
   bls12_381_2p20  the reference's own bench size: the bls12_381 DummyCircuit
             with a 2^20 domain set up on the device, 64 sampled points of each
             query recomputed on the host from the scalars the device built,
@@ -85,7 +104,8 @@ Phases, each printing one JSON line:
             kernel, of K2/K3 (at this prove's shapes, every step, and
             timed over the S sweep SCAN_SWEEP) and of the scalar
             multiplication (the kernels phase's shapes) against their
-            plain versions,
+            plain versions, K3 also timed at the bls12_377 phase's
+            K3 shape (NR = -1 beside NR = -5),
             then TorchProver on cuda: one prove with the counters set to 0 just
             before and read just after (K1-K5 and the Horner kernels must
             launch, no plain version on the card; K4/K5's launches by points
@@ -129,6 +149,8 @@ N_KERNEL = 1 << 16
 REPS = 10
 BLS_CURVE = "bls12_381"
 BLS_LOG_N = 20
+B377_CURVE = "bls12_377"
+B377_LOG_N = 16
 UBENCH_N, UBENCH_R = 1 << 20, 2048
 
 # Published peaks of one H100 SXM (700 W): HBM at 3.35 TB/s; 32-bit
@@ -229,17 +251,34 @@ def max_abs_err(got, want) -> int:
 def phase_card():
     import torch
 
+    import threading
+
     from groth16_tpu_torch.curves.params import get_curve
     from groth16_tpu_torch.fields.spec import make_spec
+    from groth16_tpu_torch.native import native_pairing
     from groth16_tpu_torch.utils import cuda_build
 
     names = [
         name
-        for c in (get_curve(CURVE), get_curve(BLS_CURVE))
+        for c in (get_curve(CURVE), get_curve(BLS_CURVE), get_curve(B377_CURVE))
         for name in cuda_build.curve_variants(make_spec(c.p).n_limbs, c.fp2_nonresidue)
     ] + ["ubench_ops"]
+    # the verifier's native engine (g++) builds beside the nvcc wave
+    native_s = {}
+
+    def build_native():
+        t = time.time()
+        native_pairing(CURVE)
+        native_s["seconds"] = time.time() - t
+
+    native = threading.Thread(target=build_native)
     t0 = time.time()
+    native.start()
     reports = cuda_build.build(dict.fromkeys(names))
+    native.join()
+    missing = [c for c in (CURVE, B377_CURVE, BLS_CURVE) if native_pairing(c) is None]
+    if missing:
+        raise AssertionError(f"the native verifier engine is unavailable for {missing}")
     emit({
         "phase": "card",
         "card": card_line(),
@@ -248,6 +287,7 @@ def phase_card():
         "torch": torch.__version__,
         "cuda": torch.version.cuda,
         "build_s": round(time.time() - t0, 3),
+        "native_engine_build_s": native_s.get("seconds"),
         "libraries": {
             n: {"seconds": round(r["seconds"], 3), "kernels": ptxas_summary(r["ptxas"])}
             for n, r in reports.items()
@@ -534,22 +574,25 @@ def phase_kernels(pk, matrices, device):
 # K1's checked and timed shapes: (field, log2 n, period h of the second
 # operand or None): the 2^16 prove's NTT stages (2^15) and products
 # (2^16), the 2^20 prove's (2^19, 2^20), L = 26 at both sizes, and the
-# NTT's twiddle shape (h = 2^9) and a constant (h = 1)
+# NTT's twiddle shape (h = 2^9) and a constant (h = 1); the first is the
+# kernels line's row
 K1_SIZES = (
-    ("bn254.Fr", 15, None), ("bn254.Fr", 16, None), ("bn254.Fq", 16, None), ("bn254.Fr", 19, None),
+    ("bn254.Fr", 16, None), ("bn254.Fr", 15, None), ("bn254.Fq", 16, None), ("bn254.Fr", 19, None),
     ("bn254.Fr", 20, None), ("bls12_381.Fq", 16, None), ("bls12_381.Fq", 20, None),
     ("bn254.Fr", 19, 1 << 9), ("bn254.Fr", 16, 1),
 )
+# bls12_377's p and r (L = 26 and 18) at its 2^16 prove's products
+K1_SIZES_377 = (("bls12_377.Fq", 16, None), ("bls12_377.Fr", 16, None), ("bls12_377.Fr", 15, None))
 # elements a thread of K1's sweep (the kernel's 1 and 2)
 K1_ELEMENTS = (1, 2)
 
 
-def _mont_mul_kernel(rng, device):
-    """K1 at each of K1_SIZES: digit-equal to its plain version on lazy
+def _mont_mul_kernel(rng, device, sizes=K1_SIZES):
+    """K1 at each of `sizes`: digit-equal to its plain version on lazy
     operands (digit-wise sums of two exact values < p), then timed
     (queued_ms) at the wrapper's elements a thread and at each of
     K1_ELEMENTS; the bound counts an [L, h] operand once.  Returns the kernels-line entry
-    (the 2^16 bn254 Fr row)."""
+    (the first size's row)."""
     import numpy as np
     import torch
 
@@ -558,11 +601,10 @@ def _mont_mul_kernel(rng, device):
     from groth16_tpu_torch.fields.spec import encode, make_spec
     from groth16_tpu_torch.utils.profiling import mont_mul_word_ops
 
-    fields = {"bn254.Fr": get_curve(CURVE).r, "bn254.Fq": get_curve(CURVE).p,
-              "bls12_381.Fq": get_curve(BLS_CURVE).p}
     entry = None
-    for label, log_n, h in K1_SIZES:
-        spec = make_spec(fields[label])
+    for label, log_n, h in sizes:
+        curve, field = label.split(".")
+        spec = make_spec(get_curve(curve).p if field == "Fq" else get_curve(curve).r)
         L, n = spec.n_limbs, 1 << log_n
         # lazy operands: digit-wise sums of two exact values < p (4,096
         # distinct columns, tiled)
@@ -600,7 +642,7 @@ def _mont_mul_kernel(rng, device):
                "elements_per_thread": vec, "ms_by_elements_per_thread": sweep, "plain_ms": plain_ms,
                **bound((2 * n + (h or n)) * L * 4, n * mont_mul_word_ops(L)), "card": card_line()}
         emit({"phase": "kernels", **row})
-        if (label, log_n, h) == ("bn254.Fr", 16, None):
+        if entry is None:
             entry = {"name": "mont_mul", "route": "cuda", "source": "groth16_tpu_torch/csrc/mont_mul.cu",
                      "replaces": "groth16_tpu/fields/pallas_fp.py:114", **_kline(row)}
     return entry
@@ -916,13 +958,13 @@ SCALAR_MUL_LANES = (33, 4101)
 SCALAR_MUL_LANE_BITS = 64
 
 
-def _scalar_mul_kernels(src_of, c, device, horner, seed):
+def _scalar_mul_kernels(src_of, c, device, horner, seed, extra_lanes=SCALAR_MUL_LANES):
     """The scalar-multiplication kernel against its plain version (the
     select loop of additions it replaces, on the card), digit for digit:
     at the device assembly's shapes, G1 [r, s, rs] (3 lanes) and [s, r]
     (2 lanes) and G2 s (1 lane), with a random r and s (the curve order's
     width, its top bits zero where the scalars are shorter), and at
-    SCALAR_MUL_LANES lanes of SCALAR_MUL_LANE_BITS bits (lane 2
+    `extra_lanes` lanes of SCALAR_MUL_LANE_BITS bits (lane 2
     infinity); each timed
     (queued_ms) beside its bound, and its time a chain addition (the
     launch's sequential additions) beside Horner's (`horner`: this
@@ -950,7 +992,7 @@ def _scalar_mul_kernels(src_of, c, device, horner, seed):
         shapes = [("assembly [r, s, rs]", asm), ("assembly [s, r]", torch.stack([asm[1], asm[0]]))]
         if D == 2:
             shapes = [("assembly s", asm[1:2])]
-        for lanes in SCALAR_MUL_LANES:
+        for lanes in extra_lanes:
             b = rng.integers(0, 2, (lanes, SCALAR_MUL_LANE_BITS), dtype=np.int32)
             b[0], b[1] = 0, 1
             shapes.append((f"{lanes} lanes", torch.from_numpy(b).to(device)))
@@ -1058,8 +1100,8 @@ def timed_once(fn):
 SCAN_SWEEP = (1, 4, 8, 16, 32, 64, 128)
 SWEEP_MIN_STEPS = 8
 # steps a segment of the 2^20 prove's sweep (MIN_SEGMENT_STEPS; S = 1024 //
-# steps for the scans whose columns leave SMs idle)
-PROVE_SEGMENT_STEPS = (1024, 128, 64, 32, 16)
+# steps for the scans whose columns leave SMs idle): S = 1 and the chosen 64
+PROVE_SEGMENT_STEPS = (1024, 64)
 
 
 def scan_nbytes(R, steps, C, ce, live):
@@ -1137,7 +1179,7 @@ def _scan_kernels(dpk, c, rng, device):
         emit({"phase": "kernels", **row})
         entries[name] = {
             "name": name, "route": "cuda", "source": "groth16_tpu_torch/csrc/suffix_scan.cu",
-            "replaces": replaces, "segments": S, **_kline(row),
+            "replaces": replaces, "rows_steps_chunks": [R, K, C], "segments": S, **_kline(row),
         }
     return entries
 
@@ -1196,8 +1238,11 @@ def _check_special_lanes(g, out):
         raise AssertionError(f"special lanes wrong: infinity flags {inf[:4].tolist()}")
 
 
-def phase_reference(device):
-    """A 2^6 DummyCircuit proved on the card equals the exact prover."""
+def phase_reference(device, curve=CURVE, fused=(True,)):
+    """A 2^6 DummyCircuit of `curve` proved on the card equals the exact
+    prover, on each MSM path of `fused` (True: the fused scan, False: the
+    capture scan)."""
+    from groth16_tpu_torch.config import configure
     from groth16_tpu_torch.curves.params import get_curve
     from groth16_tpu_torch.protocol.generator import setup
     from groth16_tpu_torch.protocol.prover import create_proof_with_reduction
@@ -1206,18 +1251,23 @@ def phase_reference(device):
     from groth16_tpu_torch.r1cs.system import ConstraintSystem, SynthesisMode
     from groth16_tpu_torch.utils.rng import Rng
 
-    c = get_curve(CURVE)
+    c = get_curve(curve)
     ncon, nvar = (1 << 6) - 2, 1 << 5
     rng = Rng(0x2B6)
-    pk, _ = setup(DummyCircuit(nvar, ncon), CURVE, rng)
+    pk, _ = setup(DummyCircuit(nvar, ncon), curve, rng)
     r, s = rng.field_element(c.r), rng.field_element(c.r)
     cs = ConstraintSystem(c.r, mode=SynthesisMode.PROVE)
     DummyCircuit(nvar, ncon, a=3, b=5)(cs)
-    got = TorchProver(pk, cs.to_matrices(), device=device).prove(cs.full_assignment(), r, s)
+    prover = TorchProver(pk, cs.to_matrices(), device=device)
     want = create_proof_with_reduction(DummyCircuit(nvar, ncon, a=3, b=5), pk, r, s)
-    if (got.a, got.b, got.c) != (want.a, want.b, want.c):
-        raise AssertionError("the 2^6 proof on the card differs from the exact prover's")
-    emit({"phase": "reference", "circuit": "DummyCircuit 2^6", "equal_to_exact_prover": True})
+    for path in fused:
+        with configure(msm_fused_scan=path):
+            got = prover.prove(cs.full_assignment(), r, s)
+        if not _same(got, want):
+            raise AssertionError(f"the 2^6 {curve} proof on the card ({'fused' if path else 'capture'} scan) "
+                                 "differs from the exact prover's")
+    emit({"phase": "reference", "curve": curve, "circuit": "DummyCircuit 2^6",
+          "msm_scans": ["fused" if f else "capture" for f in fused], "equal_to_exact_prover": True})
 
 
 def _counters():
@@ -1667,11 +1717,139 @@ def _step(out: dict, name: str):
     emit({"phase": out["phase"], "step": name, **new})
 
 
-def phase_bls(device):
+def phase_bls377(device):
+    """bls12_377 (Fq2 nonresidue -5) at 2^16: the bench's line with a
+    fresh setup on the card (groth16_tpu_torch.bench.run, its verifier on
+    the native engine), 64 points of each query of its key checked on the
+    host, K1 at bls12_377's p and r, K4-K7, the Horner kernels, K2/K3 and
+    the scalar multiplication on its key's points against their plain
+    versions (NR = -5 in K3, K5, K7, Horner G2 and the G2 scalar
+    multiplication), then one fused prove, counted (K1-K5 and the Horner
+    kernels must launch, no plain version on the card), a capture-scan
+    prove with the same r and s, counted (K6, K7), and a device-assembled
+    one (the scalar multiplication), both equal to the fused proof; every
+    proof verifies with public input 15 and fails with 16, and one is
+    timed on the native and on the Python verifier engine; a steady
+    prove under torch.profiler; a 2^6 proof equals the exact prover's on
+    both MSM paths.  Returns the launches by path, the kernel rows and
+    K3's (rows, steps, chunks, S)."""
+    import numpy as np
+    import torch
+
+    from groth16_tpu_torch.bench import run
+    from groth16_tpu_torch.config import configure
+    from groth16_tpu_torch.curves.params import get_curve
+    from groth16_tpu_torch.utils.rng import Rng
+
+    c = get_curve(B377_CURVE)
+    out = {"phase": "bls12_377", "curve": B377_CURVE, "log_n": B377_LOG_N, "fq2_nonresidue": c.fp2_nonresidue}
+    keep = {}
+    out["bench"] = run(B377_CURVE, B377_LOG_N, device=device, keep=keep)
+    if out["bench"]["extras"]["verify_engine"] != "native":
+        raise AssertionError("the bls12_377 bench did not verify on the native engine")
+    _step(out, "bench")
+    pk, prover, z = keep["pk"], keep["prover"], keep["z"]
+    t0 = time.time()
+    out["sampled_points_checked"] = _check_sampled(B377_CURVE, pk, keep.pop("record"))
+    out["sampled_check_s"] = time.time() - t0
+    _step(out, "key")
+    krng = np.random.default_rng(0x377)
+    src_of = lambda g: _key_points(prover.dpk, g)  # noqa: E731
+    rows = {"mont_mul": _mont_mul_kernel(krng, device, K1_SIZES_377),
+            **_point_kernels(prover.dpk, c, N_KERNEL, device, mixed=(False, True)),
+            **_horner_kernels(_prove_horner_shapes(prover.dpk), c, device),
+            **_scan_kernels(prover.dpk, c, krng, device)}
+    rows.update(_scalar_mul_kernels(src_of, c, device, rows, 0x5CA3, extra_lanes=()))
+    scan = rows["suffix_scan_g2"]
+    k3_shape = (*scan["rows_steps_chunks"], scan["segments"])
+    rng = Rng(0x377)
+    r, s = rng.field_element(c.r), rng.field_element(c.r)
+    zero_counts()
+    t0 = time.time()
+    fused = prover.prove(z, r, s)
+    torch.cuda.synchronize()
+    out["prove_s"] = time.time() - t0
+    launches = read_counts(MAIN_KERNELS)
+    out["launches_per_prove"] = launches
+    out["launches_by_size"] = launch_sizes()
+    with configure(msm_fused_scan=False):
+        zero_counts()
+        capture = prover.prove(z, r, s)
+        capture_launches = read_counts(CAPTURE_KERNELS)
+    zero_counts()
+    assembled = prover.prove(z, r, s, host_assembly=False)
+    assembly = read_counts(MAIN_KERNELS + ("scalar_mul_g1", "scalar_mul_g2"))
+    if not (_same(capture, fused) and _same(assembled, fused)):
+        raise AssertionError("the bls12_377 capture-scan or device-assembled proof differs from the fused one")
+    _verify_all(keep["vk"], [fused, capture, assembled], "bls12_377")
+    out["verify_s"] = _verify_engines(keep["vk"], fused)
+    z_enc = prover.encode_assignment(z)
+    _, prof = profile_prove(lambda: prover.prove_encoded_host(z_enc, r, s))
+    if prof["device_busy_s"] is not None:
+        prof["device_busy_share"] = prof["device_busy_s"] / prof["profiled_wall_s"]
+    out.update(capture_launches_per_prove=capture_launches, device_assembly_launches_per_prove=assembly,
+               capture_and_device_assembly_equal_to_fused=True, proofs_verified=3, wrong_input_rejected=True,
+               profile=prof, card=card_line())
+    _step(out, "prove")
+    del keep, prover, pk
+    phase_reference(device, B377_CURVE, fused=(True, False))
+    return ({"bls12_377": launches, "bls12_377_capture": capture_launches,
+             "bls12_377_device_assembly": assembly}, rows, k3_shape)
+
+
+VERIFY_REPS = 5
+
+
+def _verify_engines(vk, proof) -> dict:
+    """Seconds of one verify_proof (public input 15), the mean of
+    VERIFY_REPS, on the native engine and on the pure-Python engine (the
+    verifier's native_pairing hidden for the second); both must accept."""
+    from groth16_tpu_torch.protocol import verifier
+
+    pvk = verifier.prepare_verifying_key(vk)
+    out = {}
+    native = verifier.native_pairing
+    for engine in ("native", "python"):
+        if engine == "python":
+            verifier.native_pairing = lambda curve: None
+        try:
+            t0 = time.time()
+            ok = all(verifier.verify_proof(pvk, proof, [15]) for _ in range(VERIFY_REPS))
+            out[engine] = (time.time() - t0) / VERIFY_REPS
+        finally:
+            verifier.native_pairing = native
+        if not ok:
+            raise AssertionError(f"the proof does not verify on the {engine} engine")
+    return out
+
+
+def _k3_at_shape(dpk, c, shape, rng, device):
+    """K3 of curve c timed (time_ms) on filled rows of its key's G2 points
+    at another prove's (rows, steps, chunks, S), and at S = 1: the same
+    work at another Fq2 nonresidue."""
+    from groth16_tpu_torch.curves import codec
+    from groth16_tpu_torch.msm import cuda_scan
+
+    R, K, C, S = shape
+    g = codec.g2_ops(c)
+    pts = tuple(x[..., None, : K * C] for x in dpk.b_g2_tail)
+    rows = _scan_rows(g, pts, R, K * C, rng, device)
+
+    def run(seg):
+        return cuda_scan.suffix_scan_g2_rows(g.k.spec, g.k.nr_int, g.b3_val, rows, K, C, segments=seg)
+
+    emit({"phase": "kernels", "kernel": "K3 suffix_scan_g2 at another curve's shape", "curve": c.name,
+          "fq2_nonresidue": c.fp2_nonresidue, "rows_steps_chunks": [R, K, C], "segments": S,
+          "ms": time_ms(lambda: run(S)), "ms_s1": time_ms(lambda: run(1)), "card": card_line()})
+
+
+def phase_bls(device, k3_shape=None):
     """The 2^20 bls12_381 DummyCircuit: device setup, sampled key check,
     TorchProver on cuda (one counted prove, 2 steady ones, the capture
-    scan), verify.  Returns the launches of the fused and the capture
-    prove by path, and the L = 26 kernel checks."""
+    scan), verify; K3 also at k3_shape (bls12_377's (rows, steps,
+    chunks, S), for its NR = -5 beside this NR = -1).  Returns the
+    launches of the fused and the capture prove by path, and the L = 26
+    kernel checks."""
     import numpy as np
     import torch
 
@@ -1723,6 +1901,8 @@ def phase_bls(device):
             **_horner_kernels(_prove_horner_shapes(prover.dpk), c, device),
             **_scan_kernels(prover.dpk, c, krng, device)}
     rows.update(_scalar_mul_kernels(lambda g: _key_points(prover.dpk, g), c, device, rows, 0x5CA2))
+    if k3_shape is not None:
+        _k3_at_shape(prover.dpk, c, k3_shape, krng, device)
     _add_sweep(lambda g: _key_points(prover.dpk, g), c, device, ("add_g1", "add_g2", "add_mixed_g1"))
     _k6_forms(lambda g: _key_points(prover.dpk, g), c, device)
     rng = Rng(0xB16)
@@ -1881,14 +2061,17 @@ def main() -> int:
     del prover
     setup = phase_device_setup(pk)
     del pk, vk, cs
-    bls, bls_rows = phase_bls(device)
+    b377, b377_rows, k3_shape = phase_bls377(device)
+    bls, bls_rows = phase_bls(device, k3_shape)
     kernels = []
     for name, e in entries.items():
         by_path = {"main": launches.get(name, 0), "capture": capture.get(name, 0),
                    **{p: n.get(name, 0) for p, n in paths.items()},
-                   "setup": setup.get(name, 0), **{p: n.get(name, 0) for p, n in bls.items()}}
-        if name in bls_rows:
-            e = dict(e, bls12_381={k: v for k, v in bls_rows[name].items() if k not in e or e[k] != v})
+                   "setup": setup.get(name, 0), **{p: n.get(name, 0) for p, n in b377.items()},
+                   **{p: n.get(name, 0) for p, n in bls.items()}}
+        for curve, other in ((B377_CURVE, b377_rows), (BLS_CURVE, bls_rows)):
+            if name in other:
+                e = dict(e, **{curve: {k: v for k, v in other[name].items() if k not in e or e[k] != v}})
         # the main path's launches, else those of the first path that ran it
         # (K6/K7: the capture scan; the scalar multiplication: the device
         # assembly)

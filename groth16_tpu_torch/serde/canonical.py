@@ -16,10 +16,6 @@ byte-identical with arkworks' and interchangeable with it
   with flags.  Infinity: zero coordinates + infinity flag.
 - Vec<T>: u64 little-endian length prefix, then elements.
 - Struct: fields in declaration order.
-
-Copy of `groth16_tpu/serde/canonical.py`; its subgroup checks run the
-pure-Python exact engine only (the JAX package's C++ host engine is not
-part of the port yet, as for protocol/verifier.py).
 """
 
 from __future__ import annotations
@@ -113,8 +109,15 @@ def de_g1(r: io.BytesIO, c: CurveParams, compress: bool = True, validate: bool =
         A = c.a % p if c.a else 0
         if not rc.is_on_curve_fp(p, c.b, pt, A=A):
             raise SerializationError("point not on curve")
-        # subgroup check (ark-serialize Validate::Yes)
-        if rc.mul_fp(p, pt, c.r, A=A) is not None:
+        # subgroup check (ark-serialize Validate::Yes): the native
+        # engine's scalar multiplication where it loads, else Python's
+        from groth16_tpu_torch.native import native_pairing
+
+        nat = native_pairing(c.name)
+        if nat is not None:
+            if nat.g1_subgroup_check([pt]):
+                raise SerializationError("point not in subgroup")
+        elif rc.mul_fp(p, pt, c.r, A=A) is not None:
             raise SerializationError("point not in subgroup")
     return pt
 
@@ -132,10 +135,14 @@ def _ser_fp_point(pt, p: int, compress: bool) -> bytes:
 
 
 def _g2_subgroup_ok(c: CurveParams, pt) -> bool:
-    """G2 subgroup membership by the Python point loop (ark-serialize
-    Validate::Yes)."""
+    """G2 subgroup membership: native batch scalar-mul when available,
+    Python point loop otherwise (ark-serialize Validate::Yes)."""
+    from groth16_tpu_torch.native import native_pairing
     from groth16_tpu_torch.ref import curve as rc
 
+    nat = native_pairing(c.name)
+    if nat is not None:
+        return nat.g2_subgroup_check([pt]) == 0
     a2 = getattr(c, "a2", None)
     if c.g2_over_base:
         return rc.mul_fp(c.p, pt, c.r) is None

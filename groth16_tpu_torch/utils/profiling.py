@@ -89,3 +89,24 @@ def point_add_word_ops(n_limbs: int, fp2: bool = False, mixed: bool = True) -> i
     field products, x4 over Fq2, each mont_mul_word_ops."""
     products = (13 if mixed else 12) * (4 if fp2 else 1)
     return products * mont_mul_word_ops(n_limbs)
+
+
+def msm_work_point_adds(n: int, scalar_bits: int, window_bits: int, signed: bool = True) -> int:
+    """Point additions of one Pippenger MSM of n points (the JAX package's
+    count): the suffix scan adds n a window, the bucket tail ~2 a bucket
+    (boundary add and reduce level), Horner window_bits doublings and one
+    add a window.  Signed digits halve the buckets and add a carry window
+    only where window_bits divides scalar_bits."""
+    if signed:
+        from groth16_tpu_torch.msm.pippenger import signed_num_windows
+
+        windows = signed_num_windows(scalar_bits, window_bits)
+    else:
+        windows = -(-scalar_bits // window_bits)
+    B = ((1 << (window_bits - 1)) + 1) if signed else (1 << window_bits)
+    return windows * (n + 2 * B) + windows * (window_bits + 1)
+
+
+def ntt_butterflies(n: int) -> int:
+    """Butterflies of one radix-2 NTT of size n: n/2 a stage, log2 n stages."""
+    return (n // 2) * max(1, (n - 1).bit_length())

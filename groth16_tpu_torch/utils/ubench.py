@@ -190,6 +190,15 @@ def bench(key: str, n: int = 1 << 20, R: int = 2048, reps: int = 10, device="cud
             "ops_per_s": R * n / (ms * 1e-3)}
 
 
+def mul_rate(n: int = 1 << 20, R: int = 2048, device="cuda") -> float:
+    """The card's measured 32-bit multiply rate (operations per second):
+    the larger of the u32 and i32 multiply rates at R and at 8R steps (at R
+    the launch, the ramp and the last wave of blocks take part of a short
+    kernel).  The denominator of the operations bounds and of the bench's
+    speed-of-light fractions."""
+    return max(bench(k, n, r, device=device)["ops_per_s"] for k in ("u32_mul", "i32_mul") for r in (R, 8 * R))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("ubench: no CUDA device is available", file=sys.stderr)

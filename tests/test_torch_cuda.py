@@ -41,7 +41,7 @@ def dev():
     # build every library this file loads up front, one nvcc each, all at
     # once (a library built at first use would build alone)
     names = {"ubench_ops"}
-    for curve in ("bn254", "bls12_381"):
+    for curve in ("bn254", "bls12_381", "bls12_377"):
         c = get_curve(curve)
         names.update(cuda_build.curve_variants(make_spec(c.p).n_limbs, c.fp2_nonresidue))
     cuda_build.build(sorted(names))
@@ -73,7 +73,7 @@ def _at_limit_digits(values, L):
 @pytest.mark.parametrize(
     "n,periods", [(1, [1]), (3, [1]), (4097, [1, 17]), (3 << 14, [1, 3, 1 << 14]), ((1 << 16) + 3, [1])]
 )
-@pytest.mark.parametrize("curve,field", [("bn254", "p"), ("bn254", "r"), ("bls12_381", "p")])
+@pytest.mark.parametrize("curve,field", [("bn254", "p"), ("bn254", "r"), ("bls12_381", "p"), ("bls12_377", "p")])
 def test_mont_mul_kernel_matches_plain(dev, curve, field, n, periods, monkeypatch):
     """K1 (32-bit words) at n elements, L = 18 and 26, at one and two
     elements a thread (an odd n runs one): lazy and at-limit (just below
@@ -136,7 +136,7 @@ def _batches(curve, g2, n, seed):
     return lhs, rhs, add
 
 
-@pytest.mark.parametrize("curve", ["bn254", "bls12_381"])
+@pytest.mark.parametrize("curve", ["bn254", "bls12_381", "bls12_377"])
 @pytest.mark.parametrize("group", ["g1", "g2"])
 @pytest.mark.parametrize("mixed", [False, True], ids=["full", "mixed"])
 def test_point_add_kernels_match_plain(dev, curve, group, mixed):
@@ -171,7 +171,7 @@ def test_point_add_kernels_match_plain(dev, curve, group, mixed):
 
 
 @pytest.mark.parametrize("n", [1, 3, 33, 4096 + 5])
-@pytest.mark.parametrize("curve", ["bn254", "bls12_381"])
+@pytest.mark.parametrize("curve", ["bn254", "bls12_381", "bls12_377"])
 @pytest.mark.parametrize("group", ["g1", "g2"])
 def test_point_add_sizes_match_plain(dev, curve, group, n):
     """K4/K5 (a lane group a point) at n points, digit-equal to the plain
@@ -201,7 +201,7 @@ def test_point_add_sizes_match_plain(dev, curve, group, n):
 
 
 @pytest.mark.parametrize("n", [1, 3, 33, 4096 + 5])
-@pytest.mark.parametrize("curve", ["bn254", "bls12_381"])
+@pytest.mark.parametrize("curve", ["bn254", "bls12_381", "bls12_377"])
 def test_mixed_add_g2_group_form_matches_plain(dev, curve, n):
     """K7 (a lane group a point) at n points: a projective left operand
     (Z != 1) plus an affine one with infinity rows ((0, 0), every fifth
@@ -233,7 +233,7 @@ def test_mixed_add_g2_group_form_matches_plain(dev, curve, n):
 
 @pytest.mark.parametrize("form", list(cuda_point.MIXED_G1_FORMS))
 @pytest.mark.parametrize("n", [1, 33, 4096 + 5, 1 << 17])
-@pytest.mark.parametrize("curve", ["bn254", "bls12_381"])
+@pytest.mark.parametrize("curve", ["bn254", "bls12_381", "bls12_377"])
 def test_mixed_add_g1_forms_match_plain(dev, curve, n, form, monkeypatch):
     """K6 in each of its forms (the word kernel at its natural and at a
     forced occupancy) at n points, L = 18 and 26: the special lanes
@@ -268,12 +268,14 @@ def test_mixed_add_g1_forms_match_plain(dev, curve, n, form, monkeypatch):
     assert codec.g1_from_device(c, g, head) == [add(x, y) for x, y in zip(lhs[:m], rhs[:m])]
 
 
-@pytest.mark.parametrize("curve,c,windows,lanes", [("bn254", 12, 22, 3), ("bls12_381", 16, 16, 1)])
+@pytest.mark.parametrize(
+    "curve,c,windows,lanes", [("bn254", 12, 22, 3), ("bls12_381", 16, 16, 1), ("bls12_377", 12, 22, 3)]
+)
 @pytest.mark.parametrize("group", ["g1", "g2"])
 def test_horner_kernel_matches_plain(dev, curve, group, c, windows, lanes):
     """The Horner kernel in one launch against its plain version (the loop
     of additions it replaces) at the c and window counts of the 2^16 bn254
-    and 2^20 bls12_381 proves, one window sum infinity; the result is the
+    and bls12_377 and 2^20 bls12_381 proves, one window sum infinity; the result is the
     exact sum_w 2^(c w) S_w."""
     cv = get_curve(curve)
     g2 = group == "g2"
@@ -338,7 +340,7 @@ def _same_point(a, b, p, nr):
 
 
 @pytest.mark.parametrize("segments", [1, 2, 3])
-@pytest.mark.parametrize("curve", ["bn254", "bls12_381"])
+@pytest.mark.parametrize("curve", ["bn254", "bls12_381", "bls12_377"])
 @pytest.mark.parametrize("group", ["g1", "g2"])
 def test_suffix_scan_kernels_match_plain(dev, curve, group, segments):
     """K2/K3 at S = segments against their plain version at the same S:
@@ -452,7 +454,7 @@ def test_ubench_kernel_matches_plain(dev, key):
     ubench.agree(key, got, ubench.chains_plain(key, a, b, 64))
 
 
-@pytest.mark.parametrize("curve", ["bn254", "bls12_381"])
+@pytest.mark.parametrize("curve", ["bn254", "bls12_381", "bls12_377"])
 def test_batch_inv_and_to_affine_on_the_card(dev, curve):
     """fp.batch_inv (K1 products, a chunked scan of several chunks) and
     to_affine on the card give the exact inverses and affine points."""
@@ -489,7 +491,7 @@ def test_setup_device_on_the_card_matches_the_exact_setup(dev):
 
 
 @pytest.mark.parametrize("lanes,nbits", [(1, 255), (2, 255), (3, 254), (33, 64), (4101, 16)])
-@pytest.mark.parametrize("curve", ["bn254", "bls12_381"])
+@pytest.mark.parametrize("curve", ["bn254", "bls12_381", "bls12_377"])
 @pytest.mark.parametrize("group", ["g1", "g2"])
 def test_scalar_mul_kernel_matches_plain(dev, curve, group, lanes, nbits):
     """The scalar-multiplication kernel in one launch against its plain
@@ -527,7 +529,7 @@ def test_scalar_mul_kernel_matches_plain(dev, curve, group, lanes, nbits):
     assert dec(cv, g, first) == [mul(walk[i % len(walk)], s) if s else None for i, s in enumerate(scalars)]
 
 
-@pytest.mark.parametrize("curve", ["bn254", "bls12_381"])
+@pytest.mark.parametrize("curve", ["bn254", "bls12_381", "bls12_377"])
 def test_prove_batch_and_device_assembly_on_the_card(dev, curve):
     """prove_batch (two proofs, one fetch) and prove(host_assembly=False)
     (three launches of the scalar-multiplication kernel) on the card give
@@ -556,3 +558,16 @@ def test_prove_batch_and_device_assembly_on_the_card(dev, curve):
     assert cuda_point.LAUNCHES["scalar_mul_g1"] == before["scalar_mul_g1"] + 2
     assert cuda_point.LAUNCHES["scalar_mul_g2"] == before["scalar_mul_g2"] + 1
     assert [(p.a, p.b, p.c) for p in got] == [(p.a, p.b, p.c) for p in want]
+
+
+def test_bench_on_the_card_verifies_on_the_native_engine(dev):
+    """groth16_tpu_torch.bench at 2^10 on bls12_377: the line's steady
+    proves verify (run raises otherwise) on the native engine, and its
+    speed-of-light fractions divide by the card's measured rate."""
+    from groth16_tpu_torch.bench import run
+
+    line = run("bls12_377", 10, steady=1, batch=2, verify_reps=2, nnz=(100,))
+    e = line["extras"]
+    assert e["verify_engine"] == "native"
+    assert line["value"] > 0 and e["int32_mad_per_s"] > 0
+    assert 0 < e["msm_g1_sol_frac"] < 1 and 0 < e["msm_g2_sol_frac"] < 1 and 0 < e["ntt_sol_frac"] < 1

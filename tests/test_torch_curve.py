@@ -1,5 +1,7 @@
 """Port point additions (plain versions of K4-K7) against the JAX
-package's CurveDevice on the CPU, G1 and G2, bn254 and bls12_381.
+package's CurveDevice on the CPU, G1 and G2, bn254 and bls12_381; and the
+G2 additions at bls12_377's Fq2 nonresidue -5 against the exact engine
+`groth16_tpu.ref` (equal points after conversion to affine).
 
 Tolerances: `add` is compared digit-for-digit (both run the stacked RCB
 path); `add_affine` is compared mod p after conversion to affine (the
@@ -111,3 +113,23 @@ def test_tree_reduce_sums_the_batch(group):
     x, y, _ = to_dev(c, pts, "cpu")
     batch = g.from_affine(x, y, torch.tensor([p is None for p in pts]))
     assert dec(c, g, g.tree_reduce(batch)) == want
+
+
+@pytest.mark.parametrize("mixed", [False, True], ids=["full", "mixed"])
+def test_g2_add_at_nonresidue_minus5_matches_ref(mixed):
+    """bls12_377's G2 (Fq2 = Fq[u]/(u^2 + 5)): the plain versions of K5
+    (full) and K7 (mixed) give the exact engine's sums, P+P, P+(-P) and
+    infinity lanes included."""
+    c = get_curve("bls12_377")
+    assert c.fp2_nonresidue == -5
+    ref = RefGroups("bls12_377")
+    lhs, rhs = _cases(ref, True, seed=14)
+    g = codec.g2_ops(c)
+    A = codec.g2_to_device(c, lhs, "cpu")
+    if mixed:
+        X, Y, _ = codec.g2_to_device(c, rhs, "cpu")
+        inf = torch.tensor([p is None for p in rhs])
+        got = g.add_affine(A, tuple(torch.where(inf, torch.zeros_like(v), v) for v in (X, Y)))
+    else:
+        got = g.add(A, codec.g2_to_device(c, rhs, "cpu"))
+    assert codec.g2_from_device(c, g, got) == [ref.g2_add(x, y) for x, y in zip(lhs, rhs)]

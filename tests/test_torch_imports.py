@@ -46,5 +46,7 @@ def test_scan_sees_the_package():
         ("par", "batch_pp.py"),
         ("serde", "canonical.py"),
         ("protocol", "absorb.py"),
+        ("native", "__init__.py"),
+        ("bench.py",),
     ):
         assert os.path.join("groth16_tpu_torch", *module) in names

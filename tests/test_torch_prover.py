@@ -102,7 +102,7 @@ def _dummy_setup(curve):
     return jpk, jvk, rng.field_element(c.r), rng.field_element(c.r)
 
 
-@pytest.mark.parametrize("curve", ["bn254", "bls12_381"])
+@pytest.mark.parametrize("curve", ["bn254", "bls12_381", "bls12_377"])
 def test_prover_dummy_2p6(curve):
     jpk, jvk, r, s = _dummy_setup(curve)
     _check(curve, jpk, jvk, JDummy(NVAR, NCON, a=3, b=5), DummyCircuit(NVAR, NCON, a=3, b=5), 15, r, s)
