@@ -90,13 +90,12 @@ class Worker:
 
     def build(self):
         from groth16_tpu_torch.curves.params import get_curve
-        from groth16_tpu_torch.fields.spec import make_spec
         from groth16_tpu_torch.utils import cuda_build
 
         names = set()
         for curve in ("bn254", "bls12_381"):
             c = get_curve(curve)
-            names.update(cuda_build.curve_variants(make_spec(c.p).n_limbs, c.fp2_nonresidue))
+            names.update(cuda_build.curve_variants(c))
         t0 = time.time()
         cuda_build.build(sorted(names))
         return {"build_s": time.time() - t0}

@@ -8,12 +8,14 @@ Run from the root of a checkout, on a machine with the card and nvcc:
 Phases, each printing one JSON line:
 
   card      the card, torch and CUDA versions; builds every CUDA kernel of
-            the bn254, bls12_377 and bls12_381 proves and setups and the
-            op-rate microbenchmark from groth16_tpu_torch/csrc (one nvcc per
-            library, all started together) with its registers and spills
-            (K1's, K6's and K7's on a line of their own), and beside them the
-            verifier's native C++ engine (g++), which must load for bn254,
-            bls12_377 and bls12_381;
+            the bn254, bls12_377, bw6_761 and bls12_381 proves and setups
+            (bw6_761: its L = 52 libraries over Fq only, its G2 lying over
+            Fq) and the op-rate microbenchmark from groth16_tpu_torch/csrc
+            (one nvcc per library, all started together) with each one's
+            seconds, registers, stack and spills (K1's, K6's and K7's on a
+            line of their own), and beside them the verifier's native C++
+            engine (g++), which must load for bn254, bls12_377, bw6_761 and
+            bls12_381;
   ubench    kernel V (the op-rate microbenchmark) for its seven operations at
             N = 2^20, R = 2048, each held against its plain version (at R = 16
             and at R = 2048) and timed, with the SASS each compiled to and the
@@ -96,13 +98,34 @@ Phases, each printing one JSON line:
             timed on the native and on the Python engine); one steady
             prove profiled; a 2^6 proof equals the exact prover's on both
             MSM paths;
+  bw6_761   BW6-761 at 2^16 (L = 52 for its 761-bit Fq, L = 26 for its
+            377-bit Fr; G2 over Fq, so G2 runs G1's kernels with its own
+            b3 and nothing over Fq2 may launch): the port's bench with a
+            fresh setup on the card, its line printed (its K1 launches at
+            L = 52 are the setup's decode; verify_engine must be "native"),
+            64 sampled points of each query recomputed on the host, K1 at
+            its p (2^15 and 2^16, a 2^9 period and a constant) and r, K4
+            and K6 with G1's and with G2's b3 (K6 has one form at L = 52),
+            the Horner kernel and K2 at the prove's shapes and S, and the scalar
+            multiplication at the device assembly's shapes, on its key's
+            points against their plain versions; one fused prove counted
+            (K1, K2, K4 and Horner must launch), a capture-scan one (K6)
+            and a device-assembled one (the scalar multiplication, and K1
+            at L = 52 in its to_affine) with the same r and s, equal,
+            verified with 15 and rejected with 16 (one verify timed on the
+            native and the Python engine); one steady prove profiled; a
+            2^6 proof equals the exact prover's on both MSM paths; the
+            gadget circuit (r1cs/gadget_circuit.py, a BLS12-377 G1
+            addition in-circuit) set up and proved on the card, its proof
+            equal to the exact prover's, verified and a wrong input
+            rejected;
   bls12_381_2p20  the reference's own bench size: the bls12_381 DummyCircuit
             with a 2^20 domain set up on the device, 64 sampled points of each
             query recomputed on the host from the scalars the device built,
             the L = 26 builds of K4-K7 (K4, K5 and K6 with the checks and
             the sweep of the kernels phase, K6's forms too), of the Horner
-            kernel, of K2/K3 (at this prove's shapes, every step, and
-            timed over the S sweep SCAN_SWEEP) and of the scalar
+            kernel, of K2/K3 (at this prove's shapes, every step, timed
+            at S = 1 and the chosen S) and of the scalar
             multiplication (the kernels phase's shapes) against their
             plain versions, K3 also timed at the bls12_377 phase's
             K3 shape (NR = -1 beside NR = -5),
@@ -151,6 +174,8 @@ BLS_CURVE = "bls12_381"
 BLS_LOG_N = 20
 B377_CURVE = "bls12_377"
 B377_LOG_N = 16
+BW6_CURVE = "bw6_761"
+BW6_LOG_N = 16
 UBENCH_N, UBENCH_R = 1 << 20, 2048
 
 # Published peaks of one H100 SXM (700 W): HBM at 3.35 TB/s; 32-bit
@@ -241,6 +266,19 @@ def bound(nbytes: float, mads: float) -> dict:
     return out
 
 
+def point_bound(nbytes: float, adds: int, L: int, fp2: bool = False, mixed: bool = False) -> dict:
+    """bound() of `adds` point additions that move nbytes, their products
+    counted on the word engine (utils/profiling.point_add_word_ops: the
+    fewest multiply-adds the port does a product in, as K1 and K6 do it),
+    and the same with the 15-bit digit count (point_add_u32_ops) beside
+    it as bound_15bit_ms and bound_15bit_by."""
+    from groth16_tpu_torch.utils.profiling import point_add_u32_ops, point_add_word_ops
+
+    digit = bound(nbytes, adds * point_add_u32_ops(L, fp2, mixed))
+    return {**bound(nbytes, adds * point_add_word_ops(L, fp2, mixed)),
+            "bound_15bit_ms": digit["bound_ms"], "bound_15bit_by": digit["bound_by"]}
+
+
 def max_abs_err(got, want) -> int:
     return max(int((x.long() - y.long()).abs().max()) for x, y in zip(got, want))
 
@@ -260,8 +298,8 @@ def phase_card():
 
     names = [
         name
-        for c in (get_curve(CURVE), get_curve(BLS_CURVE), get_curve(B377_CURVE))
-        for name in cuda_build.curve_variants(make_spec(c.p).n_limbs, c.fp2_nonresidue)
+        for c in (get_curve(CURVE), get_curve(BLS_CURVE), get_curve(B377_CURVE), get_curve(BW6_CURVE))
+        for name in cuda_build.curve_variants(c)
     ] + ["ubench_ops"]
     # the verifier's native engine (g++) builds beside the nvcc wave
     native_s = {}
@@ -276,7 +314,7 @@ def phase_card():
     native.start()
     reports = cuda_build.build(dict.fromkeys(names))
     native.join()
-    missing = [c for c in (CURVE, B377_CURVE, BLS_CURVE) if native_pairing(c) is None]
+    missing = [c for c in (CURVE, B377_CURVE, BLS_CURVE, BW6_CURVE) if native_pairing(c) is None]
     if missing:
         raise AssertionError(f"the native verifier engine is unavailable for {missing}")
     emit({
@@ -293,8 +331,8 @@ def phase_card():
             for n, r in reports.items()
         },
     })
-    # K1 (each L and vector width), K6 (its two forms) and K7 (the mixed
-    # G2 group form), at both L
+    # K1 (each L and vector width), K6 (its forms) and K7 (the mixed G2
+    # group form), at each L
     emit({"phase": "card", "k1_k6_k7_ptxas": {
         kernel_name(k): v
         for n, r in reports.items() if n == "mont_mul" or "_mixed_" in n
@@ -490,11 +528,17 @@ def phase_setup():
     return pk, vk, cs, rng
 
 
+def _is_g2(c, g) -> bool:
+    """Whether the curve ops g are curve c's G2: over Fq2, or (BW6-761)
+    over Fq with G2's b3, which then runs G1's kernels."""
+    return g.k.tower_deg == 2 or (c.g2_over_base and g.b3_val == 3 * c.b2 % c.p)
+
+
 def _key_points(dpk, g):
     """The proving key's points the kernel checks start from (affine
     uploads, Z = 1): the G2 query for G2, the largest G1 lane group's first
     lane for G1."""
-    if g.k.tower_deg == 2:
+    if _is_g2(dpk.params, g):
         return dpk.b_g2_tail
     return tuple(x[..., 0, :] for x in dpk.g1_groups[-1])
 
@@ -583,15 +627,20 @@ K1_SIZES = (
 )
 # bls12_377's p and r (L = 26 and 18) at its 2^16 prove's products
 K1_SIZES_377 = (("bls12_377.Fq", 16, None), ("bls12_377.Fr", 16, None), ("bls12_377.Fr", 15, None))
-# elements a thread of K1's sweep (the kernel's 1 and 2)
-K1_ELEMENTS = (1, 2)
+# BW6-761's p (L = 52) at 2^16 and 2^15 elements, against a 2^9 period and
+# a constant; its r (L = 26) at its 2^16 prove's NTT sizes
+K1_SIZES_BW6 = (
+    ("bw6_761.Fq", 16, None), ("bw6_761.Fq", 15, None), ("bw6_761.Fq", 16, 1 << 9), ("bw6_761.Fq", 16, 1),
+    ("bw6_761.Fr", 16, None), ("bw6_761.Fr", 15, None),
+)
 
 
 def _mont_mul_kernel(rng, device, sizes=K1_SIZES):
     """K1 at each of `sizes`: digit-equal to its plain version on lazy
     operands (digit-wise sums of two exact values < p), then timed
     (queued_ms) at the wrapper's elements a thread and at each of
-    K1_ELEMENTS; the bound counts an [L, h] operand once.  Returns the kernels-line entry
+    the kernel's elements a thread at that L (cuda_fp.KERNEL_VECTORS); the
+    bound counts an [L, h] operand once.  Returns the kernels-line entry
     (the first size's row)."""
     import numpy as np
     import torch
@@ -611,7 +660,8 @@ def _mont_mul_kernel(rng, device, sizes=K1_SIZES):
         a, b = (
             sum(
                 torch.from_numpy(encode(
-                    [int.from_bytes(rng.bytes(48), "little") for _ in range(4096)], spec, mont=False
+                    [int.from_bytes(rng.bytes(max(48, (spec.modulus.bit_length() + 7) // 8)), "little")
+                     for _ in range(4096)], spec, mont=False
                 ).astype(np.int32))
                 for _ in range(2)
             ).to(device).repeat(1, max(1, n // 4096))[:, :n].contiguous()
@@ -631,7 +681,7 @@ def _mont_mul_kernel(rng, device, sizes=K1_SIZES):
         sweep = {}
         chosen = cuda_fp.elements_per_thread
         try:
-            for v in K1_ELEMENTS:
+            for v in cuda_fp.KERNEL_VECTORS[L]:
                 cuda_fp.elements_per_thread = lambda L_, n_, v=v: v  # noqa: E731
                 sweep[v] = queued_ms(run)[0]
         finally:
@@ -695,14 +745,17 @@ def _point_kernels(dpk, c, n, device, mixed):
 
     from groth16_tpu_torch.curves import codec, cuda_point
     from groth16_tpu_torch.fields.spec import make_spec
-    from groth16_tpu_torch.utils.profiling import point_add_u32_ops, point_add_word_ops
 
     L = make_spec(c.p).n_limbs
     entries = {}
     for name, (tag, is_mixed, g2, replaces) in POINT_KERNELS.items():
         if is_mixed not in mixed:
             continue
-        g, deg = (codec.g2_ops(c), 2) if g2 else (codec.g1_ops(c), 1)
+        g = codec.g2_ops(c) if g2 else codec.g1_ops(c)
+        deg = g.k.tower_deg
+        if g2 and deg == 1:  # G2 over Fq: G1's kernel (K4, K6) with G2's b3
+            g1_tag, _, _, replaces = POINT_KERNELS[name.replace("g2", "g1")]
+            tag = f"{g1_tag} (G2's b3)"
         p1, p2, p1m, xy = _kernel_inputs(_key_points(dpk, g), g, n, device)
         plain_ops = cuda_point._plain_ops(g.k.spec, getattr(g.k, "nr_int", None))
         add = g.add_affine if is_mixed else g.add
@@ -723,14 +776,9 @@ def _point_kernels(dpk, c, n, device, mixed):
             raise AssertionError(f"{tag} {name} on {c.name}: kernel and plain version disagree")
         _check_special_lanes(g, got)
         ms, plain_ms = queued_ms(run)[0], time_ms(run_plain)
-        digit_bound = bound(nbytes, live * point_add_u32_ops(L, g2, mixed=is_mixed))
         row = {"kernel": f"{tag} {name}", "curve": c.name, "n": n, "live": live, "tolerance": 0,
-               "max_abs_err": max_abs_err(got, want), "ms": ms, "plain_ms": plain_ms, **digit_bound}
-        if name == "add_mixed_g1":
-            # K6 runs on 32-bit words: its operations bound counts word
-            # products; the 15-bit count's bound beside it
-            row.update(bound(nbytes, live * point_add_word_ops(L)),
-                       bound_15bit_ms=digit_bound["bound_ms"], bound_15bit_by=digit_bound["bound_by"])
+               "max_abs_err": max_abs_err(got, want), "ms": ms, "plain_ms": plain_ms,
+               **point_bound(nbytes, live, L, deg == 2, is_mixed)}
         emit({"phase": "kernels", **row})
         entries[name] = {
             "name": name, "route": "cuda", "source": "groth16_tpu_torch/csrc/point_add.cu",
@@ -818,9 +866,9 @@ K6_FORM_ROUNDS = 3
 
 
 def _k6_forms(src_of, c, device, sizes=None, check=True):
-    """K6 in each of its forms (cuda_point.MIXED_G1_FORMS: the word
-    kernel at its natural and at a forced occupancy), held against the
-    plain version at 2^16 points where `check`, then timed (queued_ms) at
+    """K6 in each of its forms at curve c's L (cuda_point.mixed_g1_forms:
+    the word kernel at its natural and at a forced occupancy), held
+    against the plain version at 2^16 points where `check`, then timed (queued_ms) at
     each of `sizes` points (K6_FORM_N) in K6_FORM_ROUNDS rounds of turns, beside the
     word and the 15-bit bounds; the points a wave of each form holds on
     the card, the wrapper's form at each size (mixed_g1_form) and whether
@@ -835,12 +883,13 @@ def _k6_forms(src_of, c, device, sizes=None, check=True):
     sizes = K6_FORM_N if sizes is None else sizes
     src, chosen = src_of(g), cuda_point.mixed_g1_form
     wave = cuda_point.mixed_g1_waves(L, torch.device(device))
-    ms, bounds, kept = {f: {} for f in cuda_point.MIXED_G1_FORMS}, {}, {}
+    forms = cuda_point.mixed_g1_forms(L)
+    ms, bounds, kept = {f: {} for f in forms}, {}, {}
     try:
         for n in sizes:
             run, run_plain = _add_run("add_mixed_g1", g, True, src, n, device)
             want = run_plain() if check and n == 1 << 16 else None
-            for form in cuda_point.MIXED_G1_FORMS:
+            for form in forms:
                 cuda_point.mixed_g1_form = lambda n_, w_, f=form: f  # noqa: E731
                 if want is not None:
                     got = run()
@@ -850,7 +899,7 @@ def _k6_forms(src_of, c, device, sizes=None, check=True):
                 ms[form][n] = []
             del want
             for _ in range(K6_FORM_ROUNDS):
-                for form in cuda_point.MIXED_G1_FORMS:
+                for form in forms:
                     cuda_point.mixed_g1_form = lambda n_, w_, f=form: f  # noqa: E731
                     ms[form][n].append(queued_ms(run)[0])
             fastest = min(ms, key=lambda f: statistics.median(ms[f][n]))
@@ -913,7 +962,6 @@ def _horner_kernels(shapes, c, device):
 
     from groth16_tpu_torch.curves import codec, cuda_point
     from groth16_tpu_torch.msm.pippenger import msm_plan
-    from groth16_tpu_torch.utils.profiling import point_add_u32_ops
 
     sbits = c.r.bit_length()
     entries = {}
@@ -937,7 +985,7 @@ def _horner_kernels(shapes, c, device):
             adds = lanes * W * (plan.c + 1)
             calls.append({"lanes": lanes, "msm_points": n, "c": plan.c, "windows": W, "adds": adds,
                           "ms": ms, "ms_per_chain_addition": ms / (W * (plan.c + 1)), "plain_ms": plain_ms,
-                          **bound(3 * D * L * 4 * lanes * (W + 1), adds * point_add_u32_ops(L, D == 2, mixed=False))})
+                          **point_bound(3 * D * L * 4 * lanes * (W + 1), adds, L, D == 2)})
         row = {"kernel": name, "curve": c.name, "tolerance": 0, "max_abs_err": err, "calls": calls,
                **{key: sum(x[key] for x in calls) for key in ("ms", "plain_ms", "bound_ms", "bound_published_ms")},
                "bound_by": calls[0]["bound_by"], "bound_published_by": calls[0]["bound_published_by"]}
@@ -976,7 +1024,6 @@ def _scalar_mul_kernels(src_of, c, device, horner, seed, extra_lanes=SCALAR_MUL_
     from groth16_tpu_torch.curves import codec, cuda_point
     from groth16_tpu_torch.fields.spec import make_spec
     from groth16_tpu_torch.protocol.prover_torch import scalar_bits
-    from groth16_tpu_torch.utils.profiling import point_add_u32_ops
 
     rng = np.random.default_rng(seed)
     r, s = (int.from_bytes(rng.bytes(40), "little") % c.r for _ in range(2))
@@ -990,7 +1037,7 @@ def _scalar_mul_kernels(src_of, c, device, horner, seed, extra_lanes=SCALAR_MUL_
         src = src_of(g)
         finite = torch.nonzero(~g.is_infinity(src)).reshape(-1)
         shapes = [("assembly [r, s, rs]", asm), ("assembly [s, r]", torch.stack([asm[1], asm[0]]))]
-        if D == 2:
+        if _is_g2(c, g):
             shapes = [("assembly s", asm[1:2])]
         for lanes in extra_lanes:
             b = rng.integers(0, 2, (lanes, SCALAR_MUL_LANE_BITS), dtype=np.int32)
@@ -1020,7 +1067,7 @@ def _scalar_mul_kernels(src_of, c, device, horner, seed, extra_lanes=SCALAR_MUL_
                    "tolerance": 0, "max_abs_err": max_abs_err(got, want), "ms": ms, "plain_ms": plain_ms,
                    "additions": adds, "chain_additions": chain, "ms_per_chain_addition": ms / chain,
                    "horner_ms_per_chain_addition": horner[f"horner_g{D}"]["ms_per_chain_addition"],
-                   **bound((6 * D * L + nbits) * 4 * lanes, adds * point_add_u32_ops(L, D == 2, mixed=False)),
+                   **point_bound((6 * D * L + nbits) * 4 * lanes, adds, L, D == 2),
                    "card": card_line()}
             emit({"phase": "kernels", **row})
             if label in ("assembly [r, s, rs]", "assembly s"):
@@ -1111,20 +1158,19 @@ def scan_nbytes(R, steps, C, ce, live):
     return (R * steps * ce + live * ce + R * steps * 3 * ce + R * C * 3 * ce) * 4
 
 
-def _scan_kernels(dpk, c, rng, device):
+def _scan_kernels(dpk, c, rng, device, sweep=True):
     """K2/K3 against their plain version at the shapes the prove gives
     them, all K steps of each column: the G1 window group with the most
     points, and the G2 MSM.  Both run at the S the card chooses
     (`cuda_scan.scan_segments`), the plain version at the same S, timed
     from the one run that is checked.  Each is timed at S = 1 and at the
-    chosen S, on filled rows and on the key's own rows, and over
-    SCAN_SWEEP."""
+    chosen S, on filled rows and on the key's own rows, and, where
+    `sweep`, over SCAN_SWEEP."""
     import torch
 
     from groth16_tpu_torch.curves import codec, cuda_point
     from groth16_tpu_torch.msm import cuda_scan
     from groth16_tpu_torch.msm.pippenger import msm_plan
-    from groth16_tpu_torch.utils.profiling import point_add_u32_ops
 
     sbits = c.r.bit_length()
     big = max(range(len(dpk.g1_groups)), key=lambda i: dpk.g1_groups[i][2].numel())
@@ -1138,6 +1184,8 @@ def _scan_kernels(dpk, c, rng, device):
     for name, tag, g, pts, replaces in specs:
         k = g.k
         D, L = k.tower_deg, k.spec.n_limbs
+        if tag == "K3" and D == 1:  # G2 over Fq: K2 with G2's b3
+            tag, replaces = "K2 (G2's b3)", specs[0][4]
         nr = getattr(k, "nr_int", None)
         ce = D * L
         lanes, n = g.batch_shape(pts)
@@ -1165,16 +1213,17 @@ def _scan_kernels(dpk, c, rng, device):
         # a step whose affine operand is infinity passes the accumulator on
         live, key_live = (int((x[..., ce:] != 0).any(dim=-1).sum()) for x in (rows, key_rows))
         nbytes = scan_nbytes(R, npad, C, ce, live)
-        key_bound = bound(scan_nbytes(R, npad, C, ce, key_live), key_live * point_add_u32_ops(L, D == 2))
+        key_bound = point_bound(scan_nbytes(R, npad, C, ce, key_live), key_live, L, D == 2, mixed=True)
         row = {"kernel": f"{tag} {name}", "curve": c.name, "rows_steps_chunks": [R, K, C],
                "segments": S, "live": live, "tolerance": 0,
                "max_abs_err": max_abs_err(got, want), "ms": ms, "ms_s1": ms_s1, "plain_ms": plain_ms,
-               **bound(nbytes, live * point_add_u32_ops(L, D == 2)),
+               **point_bound(nbytes, live, L, D == 2, mixed=True),
                "key_rows": {"live": key_live, "ms": key_ms, "ms_s1": key_ms_s1,
                             "bound_ms": key_bound["bound_ms"], "bound_by": key_bound["bound_by"]}}
-        sweep = {s for s in SCAN_SWEEP if s * SWEEP_MIN_STEPS <= K} | {S}
-        row["sweep_ms"] = {s: time_ms(lambda: run(rows, s), reps=3) for s in sorted(sweep)}
-        row["key_rows"]["sweep_ms"] = {s: time_ms(lambda: run(key_rows, s), reps=3) for s in sorted(sweep)}
+        if sweep:
+            sweep_s = sorted({s for s in SCAN_SWEEP if s * SWEEP_MIN_STEPS <= K} | {S})
+            row["sweep_ms"] = {s: time_ms(lambda: run(rows, s), reps=3) for s in sweep_s}
+            row["key_rows"]["sweep_ms"] = {s: time_ms(lambda: run(key_rows, s), reps=3) for s in sweep_s}
         row["card"] = card_line()
         emit({"phase": "kernels", **row})
         entries[name] = {
@@ -1673,39 +1722,44 @@ def phase_device_setup(pk_exact):
 def _check_sampled(curve, pk, record, k=64, seed=0x5A):
     """k points of each query (half of them, where there are that many,
     from nonzero scalars) recomputed on the host as scalar x generator
-    with the exact engine, from the scalars the device built."""
+    with the exact engine (its Jacobian fixed-base batch_mul, one window
+    table a generator), from the scalars the device built."""
     import numpy as np
     import torch
 
     from groth16_tpu_torch.curves.params import get_curve
     from groth16_tpu_torch.fields.spec import decode, make_spec
-    from groth16_tpu_torch.ref.curve import RefGroups
+    from groth16_tpu_torch.ref.group import g1_jacobian, g2_jacobian
 
-    groups = RefGroups(curve)
-    spec = make_spec(get_curve(curve).r)
+    c = get_curve(curve)
+    spec = make_spec(c.r)
     rng = np.random.default_rng(seed)
     na, nb, nh, nl, ni = record["counts"]
     queries = (
-        ("a_query", record["g1"], 0, na, pk.a_query, groups.g1_mul, record["g1_generator"]),
-        ("b_g1_query", record["g1"], na, nb, pk.b_g1_query, groups.g1_mul, record["g1_generator"]),
-        ("h_query", record["g1"], na + nb, nh, pk.h_query, groups.g1_mul, record["g1_generator"]),
-        ("l_query", record["g1"], na + nb + nh, nl, pk.l_query, groups.g1_mul, record["g1_generator"]),
-        ("gamma_abc_g1", record["g1"], na + nb + nh + nl, ni, pk.vk.gamma_abc_g1, groups.g1_mul,
-         record["g1_generator"]),
-        ("b_g2_query", record["g2"], 0, nb, pk.b_g2_query, groups.g2_mul, record["g2_generator"]),
+        ("a_query", "g1", 0, na, pk.a_query),
+        ("b_g1_query", "g1", na, nb, pk.b_g1_query),
+        ("h_query", "g1", na + nb, nh, pk.h_query),
+        ("l_query", "g1", na + nb + nh, nl, pk.l_query),
+        ("gamma_abc_g1", "g1", na + nb + nh + nl, ni, pk.vk.gamma_abc_g1),
+        ("b_g2_query", "g2", 0, nb, pk.b_g2_query),
     )
-    checked = {}
-    for name, scal, off, n, pts, mul, gen in queries:
+    picked = {"g1": [], "g2": []}
+    for name, grp, off, n, pts in queries:
+        scal = record[grp]
         nonzero = torch.nonzero((scal[:, off : off + n] != 0).any(dim=0)).reshape(-1).cpu().numpy()
         pick = set(rng.choice(nonzero, size=min(k // 2, len(nonzero)), replace=False).tolist())
         rest = rng.permutation(n)
         pick |= set(rest[: max(0, min(k, n) - len(pick))].tolist())
         idx = sorted(pick)
         vals = decode(scal[:, [off + i for i in idx]].cpu().numpy(), spec, mont=False)
-        for i, s in zip(idx, vals):
-            if mul(gen, s) != pts[i]:
+        picked[grp] += [(name, i, s, pts[i]) for i, s in zip(idx, vals)]
+    checked = dict.fromkeys((q[0] for q in queries), 0)
+    for grp, ops in (("g1", g1_jacobian(c)), ("g2", g2_jacobian(c))):
+        want = ops.batch_mul(record[f"{grp}_generator"], [s for _, _, s, _ in picked[grp]], c.r.bit_length())
+        for (name, i, _, got), w in zip(picked[grp], want):
+            if got != w:
                 raise AssertionError(f"{name}[{i}] is not its scalar times the generator")
-        checked[name] = len(idx)
+            checked[name] += 1
     return checked
 
 
@@ -1795,6 +1849,172 @@ def phase_bls377(device):
     phase_reference(device, B377_CURVE, fused=(True, False))
     return ({"bls12_377": launches, "bls12_377_capture": capture_launches,
              "bls12_377_device_assembly": assembly}, rows, k3_shape)
+
+
+# BW6-761 (L = 52): G1 and G2 both lie over Fq, so every G2 addition,
+# scan step and Horner chain runs G1's kernels (K4, K6, K2, Horner) with
+# G2's b3, and the kernels over Fq2 never launch
+BW6_FQ2_KERNELS = ("add_g2", "add_mixed_g2", "horner_g2", "suffix_scan_g2", "scalar_mul_g2")
+BW6_MAIN = ("mont_mul", "add_g1", "horner_g1", "suffix_scan_g1")
+BW6_CAPTURE = ("mont_mul", "add_g1", "horner_g1", "add_mixed_g1")
+BW6_ASSEMBLY = BW6_MAIN + ("scalar_mul_g1",)
+# BW6-761's G2 rows of the kernel checks, by the G1 kernel that runs them
+BW6_G2_ROWS = {"add_g2": "add_g1", "add_mixed_g2": "add_mixed_g1", "horner_g2": "horner_g1",
+               "suffix_scan_g2": "suffix_scan_g1", "scalar_mul_g2": "scalar_mul_g1"}
+
+
+def _bw6_counts(kernels, what):
+    """read_counts(kernels), K1's launches at each L, and a check that no
+    kernel over Fq2 launched."""
+    from groth16_tpu_torch.fields import cuda_fp
+
+    launches = read_counts(kernels)
+    ran = {k: launches[k] for k in BW6_FQ2_KERNELS if launches[k]}
+    if ran:
+        raise AssertionError(f"bw6_761 {what}: a kernel over Fq2 launched: {ran}")
+    by_l = {k: v for k, v in cuda_fp.LAUNCH_SIZES["mont_mul"].items() if k.startswith("L")}
+    return dict(launches, mont_mul_by_limbs=by_l)
+
+
+def _bw6_gadget(device):
+    """The gadget circuit (r1cs/gadget_circuit.py: a BLS12-377 G1 addition
+    in-circuit, its x public) set up on the card with BW6-761 and proved
+    by TorchProver (counted: K1, K2, K4 and Horner launch); the proof must
+    equal the exact prover's on the same key, r and s, verify with the
+    sum's x and fail with x + 1."""
+    import torch
+
+    from groth16_tpu_torch.curves.params import get_curve
+    from groth16_tpu_torch.protocol.generator_torch import setup_device
+    from groth16_tpu_torch.protocol.prover import create_proof_with_reduction
+    from groth16_tpu_torch.protocol.prover_torch import TorchProver
+    from groth16_tpu_torch.protocol.verifier import prepare_verifying_key, verify_proof
+    from groth16_tpu_torch.r1cs.gadget_circuit import INNER, OUTER, G1AddCircuit
+    from groth16_tpu_torch.r1cs.system import ConstraintSystem, SynthesisMode
+    from groth16_tpu_torch.ref.curve import RefGroups
+    from groth16_tpu_torch.utils.rng import Rng
+
+    c = get_curve(OUTER)
+    inner = RefGroups(INNER)
+    P = inner.g1_sample(3)
+    Q = inner.g1_mul(P, 0xC0FFEE)
+    x = inner.g1_add(P, Q)[0]
+    rng = Rng(0x6AD)
+    t0 = time.time()
+    pk, vk = setup_device(G1AddCircuit(), OUTER, rng, device=device)
+    setup_s = time.time() - t0
+    cs = ConstraintSystem(c.r, mode=SynthesisMode.PROVE)
+    G1AddCircuit(P, Q)(cs)
+    if not cs.is_satisfied() or cs.full_assignment()[1] != x:
+        raise AssertionError("the gadget circuit's assignment is wrong")
+    prover = TorchProver(pk, cs.to_matrices(), device=device)
+    r, s = rng.field_element(c.r), rng.field_element(c.r)
+    zero_counts()
+    t0 = time.time()
+    proof = prover.prove(cs.full_assignment(), r, s)
+    torch.cuda.synchronize()
+    prove_s = time.time() - t0
+    launches = _bw6_counts(BW6_MAIN, "gadget circuit")
+    if not _same(proof, create_proof_with_reduction(G1AddCircuit(P, Q), pk, r, s)):
+        raise AssertionError("the gadget circuit's proof on the card differs from the exact prover's")
+    pvk = prepare_verifying_key(vk)
+    if not verify_proof(pvk, proof, [x]) or verify_proof(pvk, proof, [(x + 1) % c.r]):
+        raise AssertionError("the gadget circuit's proof does not verify, or verifies a wrong input")
+    return {"circuit": "G1AddCircuit (a BLS12-377 G1 addition in-circuit, its x public)",
+            "constraints": cs.num_constraints, "setup_s": setup_s, "prove_s": prove_s,
+            "launches": launches, "equal_to_exact_prover": True, "verified": True,
+            "wrong_input_rejected": True}
+
+
+def phase_bw6(device):
+    """BW6-761 at 2^16 (L = 52 for its 761-bit Fq, G2 over Fq): the
+    port's bench with a fresh setup on the card (its line printed,
+    verified on the native engine; K1's launches at L = 52 are the
+    setup's decode), 64 points of each query of its key checked on the
+    host, K1 at its p (with a period and a constant operand) and r, K4
+    and K6 (its one form at L = 52) with G1's and with G2's b3, Horner and K2 at the
+    prove's shapes and the card's S, and the scalar multiplication at
+    the device assembly's shapes, on its key's points against their plain
+    versions; then a fused prove (counted: K1, K2, K4 and Horner launch,
+    nothing over Fq2, no plain version on the card), a capture-scan prove
+    (K6) and a device-assembled one (the scalar multiplication, and K1 at
+    L = 52 in its to_affine), equal, verified with 15 and rejected with
+    16; a profiled steady prove; a 2^6 proof equal to the exact prover's
+    on both scans; the gadget circuit proved on the card.  Returns the
+    launches by path and the kernel rows (G2's beside G1's)."""
+    import numpy as np
+    import torch
+
+    from groth16_tpu_torch.bench import run
+    from groth16_tpu_torch.config import configure
+    from groth16_tpu_torch.curves.params import get_curve
+    from groth16_tpu_torch.fields.spec import make_spec
+    from groth16_tpu_torch.utils.rng import Rng
+
+    c = get_curve(BW6_CURVE)
+    out = {"phase": "bw6_761", "curve": BW6_CURVE, "log_n": BW6_LOG_N, "fq_limbs": make_spec(c.p).n_limbs,
+           "fr_limbs": make_spec(c.r).n_limbs, "g2_over_fq": c.g2_over_base}
+    keep = {}
+    zero_counts()
+    out["bench"] = run(BW6_CURVE, BW6_LOG_N, device=device, keep=keep)
+    out["bench_launches"] = _bw6_counts(BW6_MAIN, "bench")
+    if out["bench_launches"]["mont_mul_by_limbs"]["L52"] == 0:
+        raise AssertionError("the bw6_761 setup's decode ran no K1 at L = 52")
+    if out["bench"]["extras"]["verify_engine"] != "native":
+        raise AssertionError("the bw6_761 bench did not verify on the native engine")
+    _step(out, "bench")
+    pk, prover, z = keep["pk"], keep["prover"], keep["z"]
+    t0 = time.time()
+    out["sampled_points_checked"] = _check_sampled(BW6_CURVE, pk, keep.pop("record"))
+    out["sampled_check_s"] = time.time() - t0
+    _step(out, "key")
+    krng = np.random.default_rng(0xB6)
+    src_of = lambda g: _key_points(prover.dpk, g)  # noqa: E731
+    rows = {"mont_mul": _mont_mul_kernel(krng, device, K1_SIZES_BW6),
+            **_point_kernels(prover.dpk, c, N_KERNEL, device, mixed=(False, True)),
+            **_horner_kernels(_prove_horner_shapes(prover.dpk), c, device),
+            **_scan_kernels(prover.dpk, c, krng, device)}
+    rows.update(_scalar_mul_kernels(src_of, c, device, rows, 0x5CA6, extra_lanes=()))
+    rng = Rng(0xB76)
+    r, s = rng.field_element(c.r), rng.field_element(c.r)
+    zero_counts()
+    t0 = time.time()
+    fused = prover.prove(z, r, s)
+    torch.cuda.synchronize()
+    out["prove_s"] = time.time() - t0
+    out["launches_per_prove"] = launches = _bw6_counts(BW6_MAIN, "fused prove")
+    out["launches_by_size"] = launch_sizes()
+    with configure(msm_fused_scan=False):
+        zero_counts()
+        capture, k6_sizes = _recording_k6_sizes(lambda: prover.prove(z, r, s))
+        capture_launches = _bw6_counts(BW6_CAPTURE, "capture prove")
+    zero_counts()
+    assembled = prover.prove(z, r, s, host_assembly=False)
+    assembly = _bw6_counts(BW6_ASSEMBLY, "device-assembled prove")
+    if assembly["mont_mul_by_limbs"]["L52"] == 0:
+        raise AssertionError("the bw6_761 device assembly ran no K1 at L = 52")
+    if not (_same(capture, fused) and _same(assembled, fused)):
+        raise AssertionError("the bw6_761 capture-scan or device-assembled proof differs from the fused one")
+    _verify_all(keep["vk"], [fused, capture, assembled], "bw6_761")
+    out["verify_s"] = _verify_engines(keep["vk"], fused)
+    z_enc = prover.encode_assignment(z)
+    _, prof = profile_prove(lambda: prover.prove_encoded_host(z_enc, r, s))
+    if prof["device_busy_s"] is not None:
+        prof["device_busy_share"] = prof["device_busy_s"] / prof["profiled_wall_s"]
+    out.update(capture_launches_per_prove=capture_launches, k6_launches_by_points=k6_sizes,
+               device_assembly_launches_per_prove=assembly, capture_and_device_assembly_equal_to_fused=True,
+               proofs_verified=3, wrong_input_rejected=True, profile=prof, card=card_line())
+    _step(out, "prove")
+    del keep, prover, pk
+    phase_reference(device, BW6_CURVE, fused=(True, False))
+    out["gadget_circuit"] = _bw6_gadget(device)
+    _step(out, "gadget_circuit")
+    # G2's rows beside G1's: they ran G1's kernels with G2's b3
+    for g2_name, g1_name in BW6_G2_ROWS.items():
+        if g2_name in rows:
+            rows[g1_name] = dict(rows[g1_name], g2_b3=rows.pop(g2_name))
+    return ({"bw6_761": launches, "bw6_761_capture": capture_launches,
+             "bw6_761_device_assembly": assembly}, rows)
 
 
 VERIFY_REPS = 5
@@ -1899,7 +2119,7 @@ def phase_bls(device, k3_shape=None):
     krng = np.random.default_rng(0xB17)
     rows = {**_point_kernels(prover.dpk, c, N_KERNEL, device, mixed=(False, True)),
             **_horner_kernels(_prove_horner_shapes(prover.dpk), c, device),
-            **_scan_kernels(prover.dpk, c, krng, device)}
+            **_scan_kernels(prover.dpk, c, krng, device, sweep=False)}
     rows.update(_scalar_mul_kernels(lambda g: _key_points(prover.dpk, g), c, device, rows, 0x5CA2))
     if k3_shape is not None:
         _k3_at_shape(prover.dpk, c, k3_shape, krng, device)
@@ -2062,14 +2282,16 @@ def main() -> int:
     setup = phase_device_setup(pk)
     del pk, vk, cs
     b377, b377_rows, k3_shape = phase_bls377(device)
+    bw6, bw6_rows = phase_bw6(device)
     bls, bls_rows = phase_bls(device, k3_shape)
     kernels = []
     for name, e in entries.items():
         by_path = {"main": launches.get(name, 0), "capture": capture.get(name, 0),
                    **{p: n.get(name, 0) for p, n in paths.items()},
                    "setup": setup.get(name, 0), **{p: n.get(name, 0) for p, n in b377.items()},
+                   **{p: n.get(name, 0) for p, n in bw6.items()},
                    **{p: n.get(name, 0) for p, n in bls.items()}}
-        for curve, other in ((B377_CURVE, b377_rows), (BLS_CURVE, bls_rows)):
+        for curve, other in ((B377_CURVE, b377_rows), (BW6_CURVE, bw6_rows), (BLS_CURVE, bls_rows)):
             if name in other:
                 e = dict(e, **{curve: {k: v for k, v in other[name].items() if k not in e or e[k] != v}})
         # the main path's launches, else those of the first path that ran it

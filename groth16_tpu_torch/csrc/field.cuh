@@ -264,21 +264,27 @@ __device__ __forceinline__ Fe<L, D> fb3(const Consts<L>& k) {
 // has one such M, whatever word size builds it, so T and its exact digits
 // are those of the 15-bit CIOS (tests/test_torch_fp.py holds a model of
 // these steps against the plain version).  Values below 8p must fit in W
-// words: W = 9 at L = 18; at L = 26, 12 words hold 8p for p < 2^381
-// (fields/cuda_fp.py checks it).  K1 (mont_mul.cu) and K6 (point_add.cu)
-// use it.
+// words: W = 9 at L = 18; at L = 26, 12 words hold 8p for p < 2^381, and
+// at L = 52 (BW6-761's Fq), 24 words hold 8p for p < 2^765 (BW6-761's p
+// has 761 bits), so W = FULL there and the last step takes PART = 12
+// bits; the 25 words of the general rule would add a multiply row and a
+// word to every operand (fields/cuda_fp.py checks that 8p fits).  K1
+// (mont_mul.cu) and K6 (point_add.cu) use it.
 
 template <int L>
 struct Words {
-  static constexpr int W = L == 26 ? 12 : (15 * L - 3 + 31) / 32;  // holds 8p
+  static constexpr int W = L == 26 ? 12 : L == 52 ? 24 : (15 * L - 3 + 31) / 32;  // holds 8p
   static constexpr int FULL = 15 * L / 32;
   static constexpr int PART = 15 * L - 32 * FULL;
   static_assert(W - FULL <= 1 && FULL <= W && PART > 0, "one multiply row past the full steps");
 };
 
+// the most words of an operand at any L with a kernel (L = 52)
+constexpr int MAX_WORDS = 24;
+
 // p as words and -p^-1 mod 2^32 (its low PART bits are -p^-1 mod 2^PART)
 struct WordConsts {
-  uint32_t p[12];
+  uint32_t p[MAX_WORDS];
   uint32_t n0;
 };
 
@@ -308,11 +314,21 @@ __device__ __forceinline__ void pack_digit(uint32_t (&w)[W], int j, uint32_t d) 
   if (off > 32 - BITS && wi + 1 < W) w[wi + 1] |= d >> (32 - off);
 }
 
+// G16_OUTLINE_MUL_W (utils/cuda_build.py sets it for K6's library at L =
+// 52): mont_mul_w is compiled once and called, instead of being inlined
+// into each of rcb_add_mixed_w's 13 products, as G16_OUTLINE_MUL does for
+// the scans' digit product.
+#ifdef G16_OUTLINE_MUL_W
+#define G16_MUL_W_ATTR __noinline__
+#else
+#define G16_MUL_W_ATTR __forceinline__
+#endif
+
 // a b R^-1 on words (a, b < 8p) -> words of a value < 2p.  CIOS: rows
 // i < FULL add a_i b, then m p with m = t_0 n0 and shift one word; the
 // row past them (L = 18) adds a_8 b unshifted; the PART-bit step last.
 template <int L>
-__device__ __forceinline__ void mont_mul_w(const uint32_t (&a)[Words<L>::W],
+__device__ G16_MUL_W_ATTR void mont_mul_w(const uint32_t (&a)[Words<L>::W],
                                            const uint32_t (&b)[Words<L>::W],
                                            uint32_t (&out)[Words<L>::W], const WordConsts& k) {
   constexpr int W = Words<L>::W, FULL = Words<L>::FULL, PART = Words<L>::PART;

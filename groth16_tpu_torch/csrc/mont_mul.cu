@@ -5,10 +5,11 @@
 // digit class with value < 8p, output exact digits < 2p, digit-identical to
 // fields/cuda_fp.py:mont_mul_plain.
 //
-// Bound on an H100: memory.  One product moves 12 L bytes (two inputs, one
-// output: 216 at L = 18, 312 at L = 26) and, on the word engine
-// (field.cuh: mont_mul_words), needs about 4 W^2 + 2 W FULL 32-bit
-// multiplies (W = 9 or 12 words): ~2.3 per byte against the card's ~5 (64
+// Bound on an H100: memory at L = 18 and 26.  One product moves 12 L bytes
+// (two inputs, one output: 216 at L = 18, 312 at L = 26, 624 at L = 52,
+// BW6-761's Fq) and, on the word engine (field.cuh: mont_mul_words), needs
+// about 4 W^2 + 2 W FULL 32-bit multiplies (W = 9, 12 or 24 words): ~2-4
+// per byte from L = 18 to L = 52 against the card's ~5 (64
 // per SM per clock on 132 SMs against 3.35 TB/s).  The TPU's 15-bit
 // digits took ~8 L^2 instructions (a multiply, a mask, a shift and two
 // adds a digit product), which made L = 26 compute bound; 32-bit words
@@ -110,8 +111,9 @@ int launch_vec(int vec, const void* a, unsigned ha, const void* b, unsigned hb, 
 
 // out[:, i] = a[:, i mod ha] * b[:, i mod hb] * R^-1 for i < n (ha, hb
 // divide n).  words: p as Words<L>::W words, then -p^-1 mod 2^32.  vec (1
-// or 2) divides n and the pointers are aligned to it.  Returns 0 or the
-// CUDA error of the launch; -1 for an L or vec without a kernel.
+// or 2; 1 at L = 52) divides n and the pointers are aligned to it.
+// Returns 0 or the CUDA error of the launch; -1 for an L or vec without a
+// kernel.
 extern "C" int g16_mont_mul(int L, const void* a, unsigned ha, const void* b, unsigned hb,
                             void* out, unsigned n, const unsigned* words, int vec,
                             void* stream) {
@@ -126,6 +128,10 @@ extern "C" int g16_mont_mul(int L, const void* a, unsigned ha, const void* b, un
       for (int j = 0; j < g16::Words<26>::W; j++) k.p[j] = words[j];
       k.n0 = words[g16::Words<26>::W];
       return launch_vec<26>(vec, a, ha, b, hb, out, n, k, s);
+    case 52:  // one element a thread: two would hold ~300 digits live
+      for (int j = 0; j < g16::Words<52>::W; j++) k.p[j] = words[j];
+      k.n0 = words[g16::Words<52>::W];
+      return vec == 1 ? launch<52, 1>(a, ha, b, hb, out, n, k, s) : -1;
     default:
       return -1;
   }

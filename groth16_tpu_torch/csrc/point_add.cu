@@ -53,8 +53,9 @@
 //                          prove carries thousands of points (the capture
 //                          scan's steps), so its cost is throughput.  The
 //                          coordinates are packed into 32-bit words at
-//                          load (9 at L = 18, 12 at L = 26) and stay in
-//                          words through the formula (rcb_add_mixed_w):
+//                          load (9 at L = 18, 12 at L = 26, 24 at L = 52)
+//                          and stay in words through the formula
+//                          (rcb_add_mixed_w):
 //                          half the multiplies of the 15-bit digits and
 //                          half the registers (the five inputs 45 or 60),
 //                          so more warps an SM hide the products' chains,
@@ -65,8 +66,9 @@
 // rcb_add and rcb_add_mixed (point.cuh); the word form computes the same
 // integers.  So the digits are the plain versions' (curves/cuda_point.py).
 // A mixed G2 library holds the group form, a mixed G1 library the word
-// kernel at two occupancies (WordBlocks; cuda_point.mixed_g1_form picks
-// the one that runs a launch in fewer waves).
+// kernel at two occupancies at L = 18 and 26 (WordBlocks;
+// cuda_point.mixed_g1_form picks the one that runs a launch in fewer
+// waves), at one at L = 52.
 
 #include <cuda_runtime.h>
 
@@ -83,7 +85,12 @@ using g16::Fe;
 
 // -- the group form --------------------------------------------------------------
 
-constexpr int kGroupWarps = 4;  // warps a block
+// Warps a block of the group kernels (K4, K5, K7, Horner).  A block's
+// points keep their words in static shared memory, which a block may hold
+// up to 48 KB of: 4 warps take 41 KB at L = 26 (G1; 27 KB over Fq2), so
+// at L = 52 (BW6-761, G1 and G2 over Fq: 20 KB a warp) a block has 2.
+template <int L>
+constexpr int kGroupWarps = L > 26 ? 2 : 4;
 
 // A point's shared words: SLOTS elements of D components, each component L
 // digits at an odd stride (lanes that read neighbouring components hit
@@ -417,7 +424,7 @@ __device__ __forceinline__ int finite_lane(const uint32_t* s, int t) {
 // The full addition (MIXED false: K4, K5) or the mixed one (MIXED true,
 // z2 unused: K7), a lane group a point.
 template <int L, int D, int NR, bool MIXED>
-__global__ void __launch_bounds__(32 * kGroupWarps, 4)
+__global__ void __launch_bounds__(32 * kGroupWarps<L>, 4)
     point_add_group_kernel(const uint32_t* __restrict__ x1, const uint32_t* __restrict__ y1,
                            const uint32_t* __restrict__ z1, const uint32_t* __restrict__ x2,
                            const uint32_t* __restrict__ y2, const uint32_t* __restrict__ z2,
@@ -425,9 +432,9 @@ __global__ void __launch_bounds__(32 * kGroupWarps, 4)
                            uint32_t* __restrict__ z3, long long n,
                            const uint32_t* __restrict__ consts, uint32_t n0) {
   using G = Group<L, D>;
-  __shared__ uint32_t smem[kGroupWarps * G::PER_WARP * G::WORDS];
+  __shared__ uint32_t smem[kGroupWarps<L> * G::PER_WARP * G::WORDS];
   const long long first =
-      ((long long)blockIdx.x * kGroupWarps + threadIdx.x / 32) * G::PER_WARP;
+      ((long long)blockIdx.x * kGroupWarps<L> + threadIdx.x / 32) * G::PER_WARP;
   if (first >= n) return;  // the whole warp
   uint32_t* s;
   const int t = group_lane<L, D>(smem, first, n, s);
@@ -462,15 +469,15 @@ __global__ void __launch_bounds__(32 * kGroupWarps, 4)
 // window from the top, c doublings add(P, P), then add(P, sums[l, w]);
 // sums planes [*coords, lanes, windows], res planes [*coords, lanes].
 template <int L, int D, int NR>
-__global__ void __launch_bounds__(32 * kGroupWarps, 4)
+__global__ void __launch_bounds__(32 * kGroupWarps<L>, 4)
     horner_kernel(const uint32_t* __restrict__ sx, const uint32_t* __restrict__ sy,
                   const uint32_t* __restrict__ sz, uint32_t* __restrict__ rx,
                   uint32_t* __restrict__ ry, uint32_t* __restrict__ rz, long long lanes,
                   int windows, int c, const uint32_t* __restrict__ consts, uint32_t n0) {
   using G = Group<L, D>;
-  __shared__ uint32_t smem[kGroupWarps * G::PER_WARP * G::WORDS];
+  __shared__ uint32_t smem[kGroupWarps<L> * G::PER_WARP * G::WORDS];
   const long long first =
-      ((long long)blockIdx.x * kGroupWarps + threadIdx.x / 32) * G::PER_WARP;
+      ((long long)blockIdx.x * kGroupWarps<L> + threadIdx.x / 32) * G::PER_WARP;
   if (first >= lanes) return;
   uint32_t* s;
   const int t = group_lane<L, D>(smem, first, lanes, s);
@@ -511,7 +518,10 @@ __global__ void __launch_bounds__(32 * kGroupWarps, 4)
   }
 }
 
-constexpr int kScalarWarps = 2;  // warps a block of the scalar multiplication
+// warps a block of the scalar multiplication (26 KB of shared memory a
+// warp at L = 52)
+template <int L>
+constexpr int kScalarWarps = L > 26 ? 1 : 2;
 
 // A point's shared words in the scalar multiplication: the group body's,
 // then the running sum (ACC) and the doubled base (BASE), 3 elements each.
@@ -531,7 +541,7 @@ struct ScalarGroup {
 // last doubling feeds nothing and is left out.  p planes [*coords, lanes],
 // bits int32 [lanes, nbits].
 template <int L, int D, int NR>
-__global__ void __launch_bounds__(32 * kScalarWarps, 8)
+__global__ void __launch_bounds__(32 * kScalarWarps<L>, 8)
     scalar_mul_kernel(const uint32_t* __restrict__ px, const uint32_t* __restrict__ py,
                       const uint32_t* __restrict__ pz, const int32_t* __restrict__ bits,
                       uint32_t* __restrict__ rx, uint32_t* __restrict__ ry,
@@ -539,9 +549,9 @@ __global__ void __launch_bounds__(32 * kScalarWarps, 8)
                       const uint32_t* __restrict__ consts, uint32_t n0) {
   using G = Group<L, D>;
   using SG = ScalarGroup<L, D>;
-  __shared__ uint32_t smem[kScalarWarps * G::PER_WARP * SG::WORDS];
+  __shared__ uint32_t smem[kScalarWarps<L> * G::PER_WARP * SG::WORDS];
   const long long first =
-      ((long long)blockIdx.x * kScalarWarps + threadIdx.x / 32) * G::PER_WARP;
+      ((long long)blockIdx.x * kScalarWarps<L> + threadIdx.x / 32) * G::PER_WARP;
   if (first >= lanes) return;  // the whole warp
   const int lane = threadIdx.x % 32, gp = lane / G::LANES;
   const bool live = gp < G::PER_WARP && first + gp < lanes;
@@ -601,10 +611,15 @@ constexpr int kWordThreads = 128;
 // more, forced (64 and 80 registers, a few hundred bytes a thread spilled
 // to L1).  A wave of the forced form holds a third (L = 18) or a half
 // (L = 26) more points, each slower: it wins where it runs a launch in
-// fewer waves (cuda_point.mixed_g1_form, PERF.md).
+// fewer waves (cuda_point.mixed_g1_form, PERF.md).  At L = 52 the
+// formula's 24-word elements pass through ~1.8 KB of stack a thread (the
+// product out of line) at any count, and a forced third block a SM made
+// no launch of 2^16 or 2^17 points faster, so L = 52 has the natural form
+// only (wide = 0: no forced form).
 template <int L>
 struct WordBlocks {
-  static constexpr int natural = L == 18 ? 6 : 4, wide = L == 18 ? 8 : 6;
+  static constexpr int natural = L == 18 ? 6 : L == 26 ? 4 : 2;
+  static constexpr int wide = L == 18 ? 8 : L == 26 ? 6 : 0;
 };
 
 // digits [L] of element i of a limb-major plane
@@ -679,11 +694,14 @@ using WordKernel = void (*)(const uint32_t*, const uint32_t*, const uint32_t*, c
                             const uint32_t*, uint32_t*, uint32_t*, uint32_t*, long long,
                             g16::MixedWordConsts<L>);
 
-// K6's word kernel at its natural (form 0) or forced (form 1) occupancy
+// K6's word kernel at its natural (form 0) or forced (form 1) occupancy;
+// nullptr for a form this L does not have
 template <int L>
 WordKernel<L> word_kernel(int form) {
   if (form == 0) return point_add_words_kernel<L, WordBlocks<L>::natural>;
-  if (form == 1) return point_add_words_kernel<L, WordBlocks<L>::wide>;
+  if constexpr (WordBlocks<L>::wide > 0) {
+    if (form == 1) return point_add_words_kernel<L, WordBlocks<L>::wide>;
+  }
   return nullptr;
 }
 
@@ -730,10 +748,10 @@ extern "C" int g16_point_add_mixed_group(const void* x1, const void* y1, const v
                                          const void* x2, const void* y2, void* x3, void* y3,
                                          void* z3, long long n, const void* consts, unsigned n0,
                                          void* stream) {
-  constexpr int per_block = kGroupWarps * Group<G16_LIMBS, G16_D>::PER_WARP;
+  constexpr int per_block = kGroupWarps<G16_LIMBS> * Group<G16_LIMBS, G16_D>::PER_WARP;
   long long blocks = (n + per_block - 1) / per_block;
   point_add_group_kernel<G16_LIMBS, G16_D, G16_NR, true>
-      <<<(unsigned)blocks, 32 * kGroupWarps, 0, (cudaStream_t)stream>>>(
+      <<<(unsigned)blocks, 32 * kGroupWarps<G16_LIMBS>, 0, (cudaStream_t)stream>>>(
           (const uint32_t*)x1, (const uint32_t*)y1, (const uint32_t*)z1, (const uint32_t*)x2,
           (const uint32_t*)y2, nullptr, (uint32_t*)x3, (uint32_t*)y3, (uint32_t*)z3, n,
           (const uint32_t*)consts, n0);
@@ -745,10 +763,10 @@ extern "C" int g16_point_add_group(const void* x1, const void* y1, const void* z
                                    const void* x2, const void* y2, const void* z2, void* x3,
                                    void* y3, void* z3, long long n, const void* consts,
                                    unsigned n0, void* stream) {
-  constexpr int per_block = kGroupWarps * Group<G16_LIMBS, G16_D>::PER_WARP;
+  constexpr int per_block = kGroupWarps<G16_LIMBS> * Group<G16_LIMBS, G16_D>::PER_WARP;
   long long blocks = (n + per_block - 1) / per_block;
   point_add_group_kernel<G16_LIMBS, G16_D, G16_NR, false>
-      <<<(unsigned)blocks, 32 * kGroupWarps, 0, (cudaStream_t)stream>>>(
+      <<<(unsigned)blocks, 32 * kGroupWarps<G16_LIMBS>, 0, (cudaStream_t)stream>>>(
           (const uint32_t*)x1, (const uint32_t*)y1, (const uint32_t*)z1, (const uint32_t*)x2,
           (const uint32_t*)y2, (const uint32_t*)z2, (uint32_t*)x3, (uint32_t*)y3, (uint32_t*)z3,
           n, (const uint32_t*)consts, n0);
@@ -759,9 +777,9 @@ extern "C" int g16_point_add_group(const void* x1, const void* y1, const void* z
 extern "C" int g16_horner(const void* sx, const void* sy, const void* sz, void* rx, void* ry,
                           void* rz, long long lanes, int windows, int c, const void* consts,
                           unsigned n0, void* stream) {
-  constexpr int per_block = kGroupWarps * Group<G16_LIMBS, G16_D>::PER_WARP;
+  constexpr int per_block = kGroupWarps<G16_LIMBS> * Group<G16_LIMBS, G16_D>::PER_WARP;
   long long blocks = (lanes + per_block - 1) / per_block;
-  horner_kernel<G16_LIMBS, G16_D, G16_NR><<<(unsigned)blocks, 32 * kGroupWarps, 0,
+  horner_kernel<G16_LIMBS, G16_D, G16_NR><<<(unsigned)blocks, 32 * kGroupWarps<G16_LIMBS>, 0,
                                             (cudaStream_t)stream>>>(
       (const uint32_t*)sx, (const uint32_t*)sy, (const uint32_t*)sz, (uint32_t*)rx,
       (uint32_t*)ry, (uint32_t*)rz, lanes, windows, c, (const uint32_t*)consts, n0);
@@ -772,9 +790,9 @@ extern "C" int g16_horner(const void* sx, const void* sy, const void* sz, void* 
 extern "C" int g16_scalar_mul(const void* px, const void* py, const void* pz, const void* bits,
                               void* rx, void* ry, void* rz, long long lanes, int nbits,
                               const void* consts, unsigned n0, void* stream) {
-  constexpr int per_block = kScalarWarps * Group<G16_LIMBS, G16_D>::PER_WARP;
+  constexpr int per_block = kScalarWarps<G16_LIMBS> * Group<G16_LIMBS, G16_D>::PER_WARP;
   long long blocks = (lanes + per_block - 1) / per_block;
-  scalar_mul_kernel<G16_LIMBS, G16_D, G16_NR><<<(unsigned)blocks, 32 * kScalarWarps, 0,
+  scalar_mul_kernel<G16_LIMBS, G16_D, G16_NR><<<(unsigned)blocks, 32 * kScalarWarps<G16_LIMBS>, 0,
                                                 (cudaStream_t)stream>>>(
       (const uint32_t*)px, (const uint32_t*)py, (const uint32_t*)pz, (const int32_t*)bits,
       (uint32_t*)rx, (uint32_t*)ry, (uint32_t*)rz, lanes, nbits, (const uint32_t*)consts, n0);

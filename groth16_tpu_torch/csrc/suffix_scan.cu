@@ -47,7 +47,9 @@
 // any product (its accumulator passes on unchanged, as rcb_add_mixed would
 // return it), so on sparse rows (most of a Groth16 key's a, b and B query
 // points can be infinity) the bytes bound it.  The early-out diverges per
-// warp only.
+// warp only.  At L = 52 (BW6-761's Fq, G1 and G2) a thread's accumulator
+// and step operands alone are 260 digits, past the 255 registers a thread
+// has: the kernel is right, not fast, and spills ~5 KB a thread (PERF.md).
 
 #include <cuda_runtime.h>
 

@@ -89,24 +89,32 @@ MIXED_G1_FORMS = {"words": 0, "words_wide": 1}
 WORD_THREADS = 128  # threads a block of K6 (csrc/point_add.cu: kWordThreads)
 
 
+def mixed_g1_forms(L: int) -> tuple:
+    """K6's forms built at L: both at L = 18 and 26, "words" alone at
+    L = 52, where a forced third block a SM made no launch faster
+    (csrc/point_add.cu: WordBlocks)."""
+    return ("words",) if L == 52 else tuple(MIXED_G1_FORMS)
+
+
 def mixed_g1_form(n: int, wave: dict) -> str:
     """K6's form for a launch of n points, where wave[form] is the points
-    one wave of that form holds on the card (`mixed_g1_waves`): the wide
-    form where it runs the launch in fewer waves, else "words" (a wave of
-    the wide form takes longer: PERF.md)."""
-    if -(-n // wave["words_wide"]) < -(-n // wave["words"]):
+    one wave of each form built holds on the card (`mixed_g1_waves`): the
+    wide form where it runs the launch in fewer waves, else "words" (a
+    wave of the wide form takes longer: PERF.md)."""
+    if "words_wide" in wave and -(-n // wave["words_wide"]) < -(-n // wave["words"]):
         return "words_wide"
     return "words"
 
 
 @functools.lru_cache(maxsize=None)
 def mixed_g1_waves(L: int, device: torch.device) -> dict:
-    """Points one wave of each K6 form holds on `device`: its blocks an SM
-    (the CUDA occupancy query) x SMs x WORD_THREADS."""
+    """Points one wave of each K6 form built at L holds on `device`: its
+    blocks an SM (the CUDA occupancy query) x SMs x WORD_THREADS."""
     lib = _lib(L, 1, True, 0)
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     wave = {}
-    for form, code in MIXED_G1_FORMS.items():
+    for form in mixed_g1_forms(L):
+        code = MIXED_G1_FORMS[form]
         blocks = lib.g16_point_add_mixed_g1_blocks(code)
         if blocks <= 0:
             raise RuntimeError(f"add_mixed_g1: occupancy query of form {form} failed ({blocks})")

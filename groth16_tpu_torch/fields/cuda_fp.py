@@ -31,8 +31,9 @@ LAUNCHES = {"mont_mul": 0}
 PLAIN_CALLS = {"mont_mul": 0}
 
 # digit counts with a kernel: csrc/mont_mul.cu instantiates these, and the
-# point-add libraries (one per L, curves/cuda_point.py) are built for them
-KERNEL_LIMBS = (18, 26)
+# point-add libraries (one per L, curves/cuda_point.py) are built for them:
+# 18 (bn254), 26 (BLS12's Fq, BW6-761's Fr) and 52 (BW6-761's Fq)
+KERNEL_LIMBS = (18, 26, 52)
 KP_ROWS = 35  # rows k*p, k = 0..34, of the constant table (csrc/field.cuh)
 
 
@@ -56,11 +57,13 @@ def kernel_consts(spec: FpSpec, b3_val, device: torch.device) -> torch.Tensor:
 
 # 32-bit words an operand below 8p takes at each L with a kernel
 # (csrc/field.cuh: Words<L>::W)
-KERNEL_WORDS = {18: 9, 26: 12}
-# K1's launches by elements a launch, and those that read an operand with
-# a period h < n
+KERNEL_WORDS = {18: 9, 26: 12, 52: 24}
+# K1's launches by elements a launch, those that read an operand with a
+# period h < n, and those at each L ("L52": BW6-761's Fq)
 SIZE_CLASSES = ("1-4096", "4097-65536", ">65536")
-LAUNCH_SIZES = {"mont_mul": dict.fromkeys(SIZE_CLASSES + ("period",), 0)}
+LAUNCH_SIZES = {
+    "mont_mul": dict.fromkeys(SIZE_CLASSES + ("period",) + tuple(f"L{L}" for L in KERNEL_LIMBS), 0)
+}
 LARGEST_LAUNCH = {"mont_mul": 0}
 
 
@@ -68,12 +71,16 @@ def size_class(n: int) -> str:
     return SIZE_CLASSES[0] if n <= 4096 else SIZE_CLASSES[1] if n <= 65536 else SIZE_CLASSES[2]
 
 
+# elements a thread K1 is built for at each L (csrc/mont_mul.cu)
+KERNEL_VECTORS = {18: (1, 2), 26: (1, 2), 52: (1,)}
+
+
 def elements_per_thread(L: int, n: int) -> int:
     """Elements a thread of a K1 launch of n elements; the wrapper takes
     one where n or an operand's alignment does not allow two.  From
     chip_smoke.py's sweep (PERF.md): one keeps the most warps in flight
     where n is small; at L = 18 two (64-bit loads) are a few per cent
-    faster from 2^18 elements on."""
+    faster from 2^18 elements on.  L = 52 has a kernel for one only."""
     return 2 if L == 18 and n >= 1 << 18 else 1
 
 
@@ -161,6 +168,7 @@ def mont_mul(spec: FpSpec, a: torch.Tensor, b: torch.Tensor, n: int = None) -> t
     sizes = LAUNCH_SIZES["mont_mul"]
     sizes[size_class(n)] += 1
     sizes["period"] += min(ha, hb) < n
+    sizes[f"L{L}"] += 1
     LARGEST_LAUNCH["mont_mul"] = max(LARGEST_LAUNCH["mont_mul"], n)
     return out
 
@@ -169,6 +177,12 @@ def _tile(x: torch.Tensor, n: int) -> torch.Tensor:
     """[L, h] with h | n -> [L, n], column i = column i mod h."""
     h = x.shape[-1]
     return x if h == n else x.expand(x.shape[0], n) if h == 1 else x.repeat(1, n // h)
+
+
+# CPU products of at most this many elements run on Python ints
+# (_mont_mul_ints): the int64 CIOS's ~5 L tensor operations a call cost
+# milliseconds whatever n is, the ints microseconds an element
+PLAIN_INT_MAX_N = 64
 
 
 def mont_mul_plain(spec: FpSpec, a: torch.Tensor, b: torch.Tensor, n: int = None) -> torch.Tensor:
@@ -181,7 +195,9 @@ def mont_mul_plain(spec: FpSpec, a: torch.Tensor, b: torch.Tensor, n: int = None
     products (< 2^37 after L steps), so the split is dropped.  Each step
     still adds a_i * b, derives m from column i and adds m * p, and every
     column holds the same value mod 2^15 when m is derived, so the m's,
-    the result (a b + M p) / R < 2p and its exact digits are the same."""
+    the result (a b + M p) / R < 2p and its exact digits are the same.
+    On the CPU, up to PLAIN_INT_MAX_N elements go through _mont_mul_ints,
+    which gives the same digits."""
     from groth16_tpu_torch.fields.fp import fold, rex
 
     if a.is_cuda:
@@ -192,6 +208,8 @@ def mont_mul_plain(spec: FpSpec, a: torch.Tensor, b: torch.Tensor, n: int = None
         n = max(a.shape[-1], b.shape[-1])
     a = _tile(fold(a).to(torch.int64), n)
     b = _tile(fold(b).to(torch.int64), n)
+    if a.device.type == "cpu" and n <= PLAIN_INT_MAX_N:
+        return _mont_mul_ints(spec, a, b)
     p_vec = torch.tensor(spec.p_limbs, dtype=torch.int64, device=a.device)[:, None].expand(L, n)
     n0 = int(spec.n0inv)
     # acc[i : i + L + 1] is the (L+1)-column accumulator of step i: the
@@ -206,3 +224,28 @@ def mont_mul_plain(spec: FpSpec, a: torch.Tensor, b: torch.Tensor, n: int = None
     # value < 2p < R: the top column is zero; one fold brings the columns
     # below 2^30, then resolve to exact digits
     return rex(fold(acc[L:]).to(torch.int32), L)
+
+
+@functools.lru_cache(maxsize=None)
+def _neg_p_inv(p: int, n_limbs: int) -> int:
+    """-p^-1 mod R = 2^(15 L)."""
+    R = 1 << (LIMB_BITS * n_limbs)
+    return -pow(p, -1, R) % R
+
+
+def _mont_mul_ints(spec: FpSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """mont_mul_plain's digits on Python ints, for folded int64 [L, n]
+    operands on the CPU.  The CIOS's M = sum m_i 2^(15 i) has every m_i
+    in [0, 2^15) and makes a b + M p = 0 mod R, so it is the one M in
+    [0, R) that does: (-a b p^-1) mod R.  The result (a b + M p) / R is
+    returned mod R in exact digits, as rex does."""
+    L, p = spec.n_limbs, spec.modulus
+    bits, R = LIMB_BITS * L, 1 << (LIMB_BITS * L)
+    shifts = range(0, bits, LIMB_BITS)
+    neg_pinv = _neg_p_inv(p, L)
+    out = []
+    for col_a, col_b in zip(a.T.tolist(), b.T.tolist()):
+        t = sum(d << s for d, s in zip(col_a, shifts)) * sum(d << s for d, s in zip(col_b, shifts))
+        v = (t + (t * neg_pinv & (R - 1)) * p) >> bits & (R - 1)
+        out.append([v >> s & LIMB_MASK for s in shifts])
+    return torch.tensor(out, dtype=torch.int32).reshape(-1, L).T.contiguous()

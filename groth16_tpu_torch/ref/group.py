@@ -49,7 +49,7 @@ class FpCtx:
     def inv(self, a):
         if a % self.p == 0:
             raise ZeroDivisionError
-        return pow(a, self.p - 2, self.p)
+        return pow(a, -1, self.p)  # Fermat's a^(p-2), by extended Euclid
 
     def is_zero(self, a) -> bool:
         return a % self.p == 0

@@ -37,9 +37,13 @@ _LIBS: Dict[str, Tuple[str, Tuple[str, ...]]] = {
 # digits) call the Montgomery product instead of inlining it
 # (csrc/field.cuh: G16_OUTLINE_MUL): inlined, an L = 26 one-thread kernel
 # on digits took ptxas 12-15 minutes.  The group forms (K4, K5, K7) and the
-# Horner kernel inline it at every L (each has one call site), and so does
-# K6 on 32-bit words.
+# Horner kernel inline it at every L (each has one call site).
 OUTLINE_MUL_MIN_LIMBS = 26
+# From this many digits on, K6 (one thread a point on 32-bit words) calls
+# its word product instead of inlining its 13 copies (csrc/field.cuh:
+# G16_OUTLINE_MUL_W): inlined, its L = 26 library builds in ~16 s, its
+# L = 52 one about five times as long as called (PERF.md).
+OUTLINE_MUL_W_MIN_LIMBS = 52
 
 
 def _formula_defines(n_limbs: int, deg: int, nr: int) -> Tuple[str, ...]:
@@ -53,6 +57,8 @@ def point_add_variant(n_limbs: int, deg: int, mixed: bool, nr: int = 0) -> str:
         nr = 0  # the G1 kernels never read it: one library for every curve
     name = f"point_add_L{n_limbs}_d{deg}_{'mixed' if mixed else 'full'}_nr{nr}".replace("-", "m")
     defines = _formula_defines(n_limbs, deg, nr) + (f"-DG16_MIXED={int(mixed)}",)
+    if mixed and deg == 1 and n_limbs >= OUTLINE_MUL_W_MIN_LIMBS:
+        defines += ("-DG16_OUTLINE_MUL_W",)
     _LIBS.setdefault(name, ("point_add.cu", defines))
     return name
 
@@ -70,14 +76,26 @@ def suffix_scan_variant(n_limbs: int, deg: int, nr: int = 0) -> str:
     return name
 
 
-def curve_variants(n_limbs: int, nr: int) -> list:
-    """Every library the prove and the device setup of one curve load: K1,
-    the four point-add kernels of its G1 and G2, and the two suffix
-    scans."""
+def curve_variants(c) -> list:
+    """Every library the prove and the device setup of curve c (a
+    CurveParams) load: K1, the full and the mixed point additions and the
+    suffix scan over Fq (G1), and, where G2 lies over Fq2 (BN, BLS12), the
+    same three over Fq2 with the curve's nonresidue.  Where G2 lies over
+    Fq itself (BW6-761) it runs G1's libraries with its own b3 (a row of
+    the constant table), so nothing over Fq2 is built."""
+    from groth16_tpu_torch.fields.spec import make_spec
+
+    n_limbs = make_spec(c.p).n_limbs
+    if c.g2_over_base:
+        degs, nr = (1,), 0
+    elif c.g2_field_degree == 2:
+        degs, nr = (1, 2), c.fp2_nonresidue
+    else:
+        raise ValueError(f"{c.name}: no kernels for G2 over a degree-{c.g2_field_degree} field")
     return (
         ["mont_mul"]
-        + [point_add_variant(n_limbs, deg, mixed, nr) for deg in (1, 2) for mixed in (False, True)]
-        + [suffix_scan_variant(n_limbs, deg, nr) for deg in (1, 2)]
+        + [point_add_variant(n_limbs, deg, mixed, nr) for deg in degs for mixed in (False, True)]
+        + [suffix_scan_variant(n_limbs, deg, nr) for deg in degs]
     )
 
 

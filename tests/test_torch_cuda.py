@@ -41,9 +41,9 @@ def dev():
     # build every library this file loads up front, one nvcc each, all at
     # once (a library built at first use would build alone)
     names = {"ubench_ops"}
-    for curve in ("bn254", "bls12_381", "bls12_377"):
+    for curve in ("bn254", "bls12_381", "bls12_377", "bw6_761"):
         c = get_curve(curve)
-        names.update(cuda_build.curve_variants(make_spec(c.p).n_limbs, c.fp2_nonresidue))
+        names.update(cuda_build.curve_variants(c))
     cuda_build.build(sorted(names))
     return torch.device("cuda")
 
@@ -73,10 +73,13 @@ def _at_limit_digits(values, L):
 @pytest.mark.parametrize(
     "n,periods", [(1, [1]), (3, [1]), (4097, [1, 17]), (3 << 14, [1, 3, 1 << 14]), ((1 << 16) + 3, [1])]
 )
-@pytest.mark.parametrize("curve,field", [("bn254", "p"), ("bn254", "r"), ("bls12_381", "p"), ("bls12_377", "p")])
+@pytest.mark.parametrize(
+    "curve,field", [("bn254", "p"), ("bn254", "r"), ("bls12_381", "p"), ("bls12_377", "p"), ("bw6_761", "p")]
+)
 def test_mont_mul_kernel_matches_plain(dev, curve, field, n, periods, monkeypatch):
-    """K1 (32-bit words) at n elements, L = 18 and 26, at one and two
-    elements a thread (an odd n runs one): lazy and at-limit (just below
+    """K1 (32-bit words) at n elements, L = 18, 26 and 52, at one and two
+    elements a thread (one at L = 52; an odd n runs one): lazy and
+    at-limit (just below
     8p, digits near 2^27) inputs; full operands and [L, h] period
     operands on either side (h = 3 splits a pair), each digit-equal to
     the plain version and counted once."""
@@ -92,7 +95,7 @@ def test_mont_mul_kernel_matches_plain(dev, curve, field, n, periods, monkeypatc
     cases = [(a, b)]
     for h in periods:
         cases += [(a, b[:, :h].contiguous()), (b[:, :h].contiguous(), a)]
-    for vec in (1, 2):
+    for vec in cuda_fp.KERNEL_VECTORS[L]:
         monkeypatch.setattr(cuda_fp, "elements_per_thread", lambda L_, n_: vec)
         for x, y in cases:
             before = cuda_fp.LAUNCHES["mont_mul"]
@@ -136,7 +139,7 @@ def _batches(curve, g2, n, seed):
     return lhs, rhs, add
 
 
-@pytest.mark.parametrize("curve", ["bn254", "bls12_381", "bls12_377"])
+@pytest.mark.parametrize("curve", ["bn254", "bls12_381", "bls12_377", "bw6_761"])
 @pytest.mark.parametrize("group", ["g1", "g2"])
 @pytest.mark.parametrize("mixed", [False, True], ids=["full", "mixed"])
 def test_point_add_kernels_match_plain(dev, curve, group, mixed):
@@ -152,8 +155,9 @@ def test_point_add_kernels_match_plain(dev, curve, group, mixed):
     p1 = tuple(x.to(dev) for x in p1)
     p2 = tuple(x.to(dev) for x in to_dev(c, rhs, "cpu"))
     k = g.k
-    name = ("add_mixed_g" if mixed else "add_g") + ("2" if g2 else "1")
-    nr = k.nr_int if g2 else None
+    # bw6_761's G2 lies over Fq: G1's kernels (K4, K6) with G2's b3
+    name = ("add_mixed_g" if mixed else "add_g") + str(k.tower_deg)
+    nr = getattr(k, "nr_int", None)
     ops = cuda_point._plain_ops(k.spec, nr)
     if mixed:
         inf = torch.tensor([q is None for q in rhs], device=dev)
@@ -171,7 +175,7 @@ def test_point_add_kernels_match_plain(dev, curve, group, mixed):
 
 
 @pytest.mark.parametrize("n", [1, 3, 33, 4096 + 5])
-@pytest.mark.parametrize("curve", ["bn254", "bls12_381", "bls12_377"])
+@pytest.mark.parametrize("curve", ["bn254", "bls12_381", "bls12_377", "bw6_761"])
 @pytest.mark.parametrize("group", ["g1", "g2"])
 def test_point_add_sizes_match_plain(dev, curve, group, n):
     """K4/K5 (a lane group a point) at n points, digit-equal to the plain
@@ -189,9 +193,9 @@ def test_point_add_sizes_match_plain(dev, curve, group, n):
     p1 = tuple(x.to(dev) for x in g.add(p1, g.infinity(g.batch_shape(p1))))  # Z != 1
     p2 = tuple(x.to(dev) for x in to_dev(c, rhs, "cpu"))
     k = g.k
-    nr = k.nr_int if g2 else None
+    nr = getattr(k, "nr_int", None)
     plain = cuda_point.add_plain(cuda_point._plain_ops(k.spec, nr), g.b3_val, p1, p2)
-    name, size = f"add_{group}", cuda_point.size_class(n)
+    name, size = f"add_g{k.tower_deg}", cuda_point.size_class(n)
     before = (cuda_point.LAUNCHES[name], cuda_point.LAUNCH_SIZES[name][size])
     got = g.add(p1, p2)
     torch.cuda.synchronize()
@@ -231,12 +235,15 @@ def test_mixed_add_g2_group_form_matches_plain(dev, curve, n):
     assert codec.g2_from_device(c, g, got) == [add(x, y) for x, y in zip(lhs, rhs)]
 
 
-@pytest.mark.parametrize("form", list(cuda_point.MIXED_G1_FORMS))
 @pytest.mark.parametrize("n", [1, 33, 4096 + 5, 1 << 17])
-@pytest.mark.parametrize("curve", ["bn254", "bls12_381", "bls12_377"])
+@pytest.mark.parametrize("curve,form", [
+    (curve, form) for curve, L in (("bn254", 18), ("bls12_381", 26), ("bls12_377", 26), ("bw6_761", 52))
+    for form in cuda_point.mixed_g1_forms(L)
+])
 def test_mixed_add_g1_forms_match_plain(dev, curve, n, form, monkeypatch):
-    """K6 in each of its forms (the word kernel at its natural and at a
-    forced occupancy) at n points, L = 18 and 26: the special lanes
+    """K6 in each of its forms at its L (the word kernel at its natural
+    and, at L = 18 and 26, a forced occupancy) at n points, L = 18, 26
+    and 52: the special lanes
     P + P, P + (-P), P + inf, inf + P and inf + inf first, then a
     projective left operand (Z != 1) plus affine points, lanes 32-63 (a
     warp of the word kernel) all with P2 infinity, the 96 lanes tiled up
@@ -269,14 +276,15 @@ def test_mixed_add_g1_forms_match_plain(dev, curve, n, form, monkeypatch):
 
 
 @pytest.mark.parametrize(
-    "curve,c,windows,lanes", [("bn254", 12, 22, 3), ("bls12_381", 16, 16, 1), ("bls12_377", 12, 22, 3)]
+    "curve,c,windows,lanes",
+    [("bn254", 12, 22, 3), ("bls12_381", 16, 16, 1), ("bls12_377", 12, 22, 3), ("bw6_761", 12, 32, 3)],
 )
 @pytest.mark.parametrize("group", ["g1", "g2"])
 def test_horner_kernel_matches_plain(dev, curve, group, c, windows, lanes):
     """The Horner kernel in one launch against its plain version (the loop
-    of additions it replaces) at the c and window counts of the 2^16 bn254
-    and bls12_377 and 2^20 bls12_381 proves, one window sum infinity; the result is the
-    exact sum_w 2^(c w) S_w."""
+    of additions it replaces) at the c and window counts of the 2^16 bn254,
+    bls12_377 and bw6_761 G1 and 2^20 bls12_381 proves, one window sum
+    infinity; the result is the exact sum_w 2^(c w) S_w."""
     cv = get_curve(curve)
     g2 = group == "g2"
     lhs, rhs, add = _batches(curve, g2, lanes * windows + 5, seed=11)
@@ -288,8 +296,8 @@ def test_horner_kernel_matches_plain(dev, curve, group, c, windows, lanes):
     sums = tuple(torch.cat([i, x[..., 1:]], dim=-1) for i, x in zip(inf, sums))
     sums = tuple(x.reshape(x.shape[:-1] + (lanes, windows)).contiguous() for x in sums)
     k = g.k
-    nr = k.nr_int if g2 else None
-    name = f"horner_{group}"
+    nr = getattr(k, "nr_int", None)
+    name = f"horner_g{k.tower_deg}"
     before = cuda_point.LAUNCHES[name]
     got = g.horner(sums, c)
     torch.cuda.synchronize()
@@ -297,15 +305,14 @@ def test_horner_kernel_matches_plain(dev, curve, group, c, windows, lanes):
     want = cuda_point.horner_plain(cuda_point._plain_ops(k.spec, nr), g.b3_val, sums, c)
     for x, y in zip(got, want):
         assert torch.equal(x, y)
-    ref = RefGroups(curve)
-    mul = ref.g2_mul if g2 else ref.g1_mul
     terms = [None] + [add(x, y) for x, y in zip(lhs[1:m], rhs[1:m])]
     exact = []
-    for lane in range(lanes):
+    for lane in range(lanes):  # the exact engine's Horner chain, from the top window
         acc = None
-        for w in range(windows):
-            t = terms[lane * windows + w]
-            acc = add(acc, mul(t, 1 << (c * w)) if t is not None else None)
+        for w in reversed(range(windows)):
+            for _ in range(c):
+                acc = add(acc, acc)
+            acc = add(acc, terms[lane * windows + w])
         exact.append(acc)
     dec = codec.g2_from_device if g2 else codec.g1_from_device
     assert dec(cv, g, got) == exact
@@ -340,7 +347,7 @@ def _same_point(a, b, p, nr):
 
 
 @pytest.mark.parametrize("segments", [1, 2, 3])
-@pytest.mark.parametrize("curve", ["bn254", "bls12_381", "bls12_377"])
+@pytest.mark.parametrize("curve", ["bn254", "bls12_381", "bls12_377", "bw6_761"])
 @pytest.mark.parametrize("group", ["g1", "g2"])
 def test_suffix_scan_kernels_match_plain(dev, curve, group, segments):
     """K2/K3 at S = segments against their plain version at the same S:
@@ -360,12 +367,14 @@ def test_suffix_scan_kernels_match_plain(dev, curve, group, segments):
     rng = np.random.default_rng(8)
     g = (codec.g2_ops if g2 else codec.g1_ops)(c)
     to_dev = codec.g2_to_device if g2 else codec.g1_to_device
+    # bw6_761's G2 lies over Fq: K2 with G2's b3
+    fq2 = g.k.tower_deg == 2
     x, y, _ = to_dev(c, pts, "cpu")
     inf = torch.tensor([p is None for p in pts])
     x, y = (torch.where(inf, torch.zeros_like(t), t) for t in (x, y))
 
     def rows_of(t):  # [L, (2,) n] -> [n, ce], tower-major
-        if g2:
+        if fq2:
             t = t.movedim(1, 0)
         return t.reshape(-1, n).T
 
@@ -374,13 +383,13 @@ def test_suffix_scan_kernels_match_plain(dev, curve, group, segments):
     rows[:, 0] |= torch.from_numpy(rng.integers(0, 2, n).astype(np.int32)) * cuda_scan.SIGN_BIT
     rows = rows.reshape(R, K * C, -1).to(dev)
     k = g.k
-    nr = k.nr_int if g2 else None
+    nr = getattr(k, "nr_int", None)
     ops = cuda_point._plain_ops(k.spec, nr)
-    name = "suffix_scan_g2" if g2 else "suffix_scan_g1"
-    add = "add_g2" if g2 else "add_g1"
+    name = "suffix_scan_g2" if fq2 else "suffix_scan_g1"
+    add = "add_g2" if fq2 else "add_g1"
 
     def scan(S):
-        if g2:
+        if fq2:
             return cuda_scan.suffix_scan_g2_rows(k.spec, nr, g.b3_val, rows, K, C, segments=S)
         return cuda_scan.suffix_scan_g1_rows(k.spec, g.b3_val, rows, K, C, segments=S)
 
@@ -395,7 +404,7 @@ def test_suffix_scan_kernels_match_plain(dev, curve, group, segments):
         assert torch.equal(x, y)
     if segments > 1:
         one = scan(1)
-        D = 2 if g2 else 1
+        D = k.tower_deg
         a = _scan_points(got[0], got[1], k.spec, D)
         b = _scan_points(one[0], one[1], k.spec, D)
         assert all(_same_point(u, v, k.spec.modulus, nr or 0) for u, v in zip(a, b))
@@ -454,7 +463,7 @@ def test_ubench_kernel_matches_plain(dev, key):
     ubench.agree(key, got, ubench.chains_plain(key, a, b, 64))
 
 
-@pytest.mark.parametrize("curve", ["bn254", "bls12_381", "bls12_377"])
+@pytest.mark.parametrize("curve", ["bn254", "bls12_381", "bls12_377", "bw6_761"])
 def test_batch_inv_and_to_affine_on_the_card(dev, curve):
     """fp.batch_inv (K1 products, a chunked scan of several chunks) and
     to_affine on the card give the exact inverses and affine points."""
@@ -491,7 +500,7 @@ def test_setup_device_on_the_card_matches_the_exact_setup(dev):
 
 
 @pytest.mark.parametrize("lanes,nbits", [(1, 255), (2, 255), (3, 254), (33, 64), (4101, 16)])
-@pytest.mark.parametrize("curve", ["bn254", "bls12_381", "bls12_377"])
+@pytest.mark.parametrize("curve", ["bn254", "bls12_381", "bls12_377", "bw6_761"])
 @pytest.mark.parametrize("group", ["g1", "g2"])
 def test_scalar_mul_kernel_matches_plain(dev, curve, group, lanes, nbits):
     """The scalar-multiplication kernel in one launch against its plain
@@ -510,14 +519,14 @@ def test_scalar_mul_kernel_matches_plain(dev, curve, group, lanes, nbits):
     if lanes > 1:
         bits[1] = 1
     bits = torch.from_numpy(bits).to(dev)
-    name = f"scalar_mul_{group}"
+    k = g.k
+    name = f"scalar_mul_g{k.tower_deg}"
     before = cuda_point.LAUNCHES[name]
     got = g.scalar_mul_bits(pts, bits)
     torch.cuda.synchronize()
     assert cuda_point.LAUNCHES[name] == before + 1
-    k = g.k
     want = cuda_point.scalar_mul_plain(
-        cuda_point._plain_ops(k.spec, k.nr_int if g2 else None), g.b3_val, pts, bits)
+        cuda_point._plain_ops(k.spec, getattr(k, "nr_int", None)), g.b3_val, pts, bits)
     for x, y in zip(got, want):
         assert torch.equal(x, y)
     ref = RefGroups(curve)
@@ -529,7 +538,7 @@ def test_scalar_mul_kernel_matches_plain(dev, curve, group, lanes, nbits):
     assert dec(cv, g, first) == [mul(walk[i % len(walk)], s) if s else None for i, s in enumerate(scalars)]
 
 
-@pytest.mark.parametrize("curve", ["bn254", "bls12_381", "bls12_377"])
+@pytest.mark.parametrize("curve", ["bn254", "bls12_381", "bls12_377", "bw6_761"])
 def test_prove_batch_and_device_assembly_on_the_card(dev, curve):
     """prove_batch (two proofs, one fetch) and prove(host_assembly=False)
     (three launches of the scalar-multiplication kernel) on the card give
@@ -555,8 +564,10 @@ def test_prove_batch_and_device_assembly_on_the_card(dev, curve):
     got = prover.prove_batch([z, z], rs[:2], ss[:2])
     before = dict(cuda_point.LAUNCHES)
     got.append(prover.prove(z, rs[2], ss[2], host_assembly=False))
-    assert cuda_point.LAUNCHES["scalar_mul_g1"] == before["scalar_mul_g1"] + 2
-    assert cuda_point.LAUNCHES["scalar_mul_g2"] == before["scalar_mul_g2"] + 1
+    # bw6_761's G2 lies over Fq: its G2 multiple runs G1's kernel
+    g2_over_fq = c.g2_over_base
+    assert cuda_point.LAUNCHES["scalar_mul_g1"] == before["scalar_mul_g1"] + 2 + g2_over_fq
+    assert cuda_point.LAUNCHES["scalar_mul_g2"] == before["scalar_mul_g2"] + 1 - g2_over_fq
     assert [(p.a, p.b, p.c) for p in got] == [(p.a, p.b, p.c) for p in want]
 
 
@@ -567,6 +578,19 @@ def test_bench_on_the_card_verifies_on_the_native_engine(dev):
     from groth16_tpu_torch.bench import run
 
     line = run("bls12_377", 10, steady=1, batch=2, verify_reps=2, nnz=(100,))
+    e = line["extras"]
+    assert e["verify_engine"] == "native"
+    assert line["value"] > 0 and e["int32_mad_per_s"] > 0
+    assert 0 < e["msm_g1_sol_frac"] < 1 and 0 < e["msm_g2_sol_frac"] < 1 and 0 < e["ntt_sol_frac"] < 1
+
+
+def test_bw6_bench_on_the_card_verifies_on_the_native_engine(dev):
+    """groth16_tpu_torch.bench at 2^10 on bw6_761 (L = 52, G2 over Fq):
+    the line's proves verify on the native (Tate) engine, and its
+    speed-of-light fractions divide by the card's measured rate."""
+    from groth16_tpu_torch.bench import run
+
+    line = run("bw6_761", 10, steady=1, batch=2, verify_reps=2, nnz=(100,))
     e = line["extras"]
     assert e["verify_engine"] == "native"
     assert line["value"] > 0 and e["int32_mad_per_s"] > 0

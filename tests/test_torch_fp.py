@@ -118,6 +118,30 @@ def _at_limit(values, L):
     return d.astype(np.uint32)
 
 
+@pytest.mark.parametrize("curve,field", [
+    ("bn254", "p"), ("bn254", "r"), ("bls12_381", "p"), ("bls12_377", "p"), ("bw6_761", "p")])
+def test_plain_int_route_matches_int64_cios(curve, field):
+    """mont_mul_plain's two CPU routes give the same digits: the same
+    lazy operands (digits at their limit, values up to 8p - 1, a period-1
+    constant among them) at n = PLAIN_INT_MAX_N (Python ints) and tiled
+    to twice that (the int64 CIOS)."""
+    p = getattr(tget_curve(curve), field)
+    s = make_spec(p)
+    L, n = s.n_limbs, cuda_fp.PLAIN_INT_MAX_N
+    r = random.Random(L)
+    va = [0, 1, p - 1, 8 * p - 1] + [r.randrange(8 * p) for _ in range(n - 4)]
+    vb = [8 * p - 1, 8 * p - 1, 2 * p + 1, 8 * p - 2] + [r.randrange(8 * p) for _ in range(n - 4)]
+    a = torch.from_numpy(_at_limit(va, L).astype(np.int32))
+    b = torch.from_numpy(_digits(vb, s, "lazy", 5).astype(np.int32))
+    ints = cuda_fp.mont_mul_plain(s, a, b)
+    cios = cuda_fp.mont_mul_plain(s, a.repeat(1, 2), b.repeat(1, 2))
+    assert torch.equal(cios, torch.cat([ints, ints], dim=1))
+    rinv = pow(s.R, -1, p)
+    assert [v % p for v in _value(ints.numpy())] == [x * y * rinv % p for x, y in zip(va, vb)]
+    const = cuda_fp.mont_mul_plain(s, a, b[:, :1])
+    assert torch.equal(cuda_fp.mont_mul_plain(s, a.repeat(1, 2), b[:, :1], 2 * n), torch.cat([const, const], dim=1))
+
+
 @pytest.mark.parametrize(
     "modulus,curve",
     [
@@ -185,7 +209,7 @@ def _words_model(digits, p, L, full=None):
     one partial step of the PART = 15 L - 32 FULL bits left, the result
     unpacked into 15-bit digits.  full=n instead runs n full steps and no
     partial one."""
-    W = {18: 9, 26: 12}[L]
+    W = {18: 9, 26: 12, 52: 24}[L]
     steps = 15 * L // 32 if full is None else full
     part = 15 * L - 32 * steps if full is None else 0
     n0 = -pow(p, -1, 1 << 32) % (1 << 32)
@@ -222,7 +246,8 @@ def _words_model(digits, p, L, full=None):
 def test_word_engine_model_matches_plain_mont_mul(modulus):
     """The argument K1 rests on: Montgomery with R = 2^(15 L) built from
     32-bit steps (8 full and a 14-bit one at L = 18, 12 full and a 6-bit
-    one at L = 26) gives the 15-bit CIOS's digits, on 0, 1, p - 1, values
+    one at L = 26; L = 52: tests/test_torch_bw6.py) gives the 15-bit
+    CIOS's digits, on 0, 1, p - 1, values
     just below 8p with digits near 2^27 and 64 random lazy values; a ninth
     full step at L = 18 (R = 2^288) gives other values."""
     s = make_spec(modulus)

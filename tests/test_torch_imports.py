@@ -48,5 +48,12 @@ def test_scan_sees_the_package():
         ("protocol", "absorb.py"),
         ("native", "__init__.py"),
         ("bench.py",),
+        ("gadgets", "__init__.py"),
+        ("gadgets", "absorb_var.py"),
+        ("gadgets", "curve_var.py"),
+        ("gadgets", "groth16_var.py"),
+        ("gadgets", "pairing_var.py"),
+        ("gadgets", "r1cs_std.py"),
+        ("r1cs", "gadget_circuit.py"),
     ):
         assert os.path.join("groth16_tpu_torch", *module) in names

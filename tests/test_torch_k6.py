@@ -190,10 +190,12 @@ def test_point_add_word_ops():
         assert profiling.point_add_word_ops(L) < profiling.point_add_u32_ops(L) // 2 + L
 
 
-# points a wave of K6's two forms holds on an H100 (132 SMs, 128 threads
-# a block): 6 and 8 blocks an SM at L = 18, 4 and 6 at L = 26
+# points a wave of K6's forms holds on an H100 (132 SMs, 128 threads a
+# block): 6 and 8 blocks an SM at L = 18, 4 and 6 at L = 26, and 2 of the
+# one form built at L = 52
 H100_WAVES = {18: {"words": 6 * 132 * 128, "words_wide": 8 * 132 * 128},
-              26: {"words": 4 * 132 * 128, "words_wide": 6 * 132 * 128}}
+              26: {"words": 4 * 132 * 128, "words_wide": 6 * 132 * 128},
+              52: {"words": 2 * 132 * 128}}
 
 
 @pytest.mark.parametrize("L,n,form", [
@@ -202,8 +204,11 @@ H100_WAVES = {18: {"words": 6 * 132 * 128, "words_wide": 8 * 132 * 128},
     (18, 8 * 132 * 128 + 1, "words"), (18, 3 << 17, "words_wide"), (18, 1 << 20, "words_wide"),
     (26, 1 << 16, "words"), (26, 73728, "words_wide"), (26, 1 << 17, "words"),
     (26, 1 << 18, "words_wide"),
+    (52, 1 << 16, "words"), (52, 2 * 132 * 128 + 1, "words"), (52, 1 << 17, "words"),
 ])
 def test_mixed_g1_form_by_waves(L, n, form):
     """K6 takes its wide form where that runs the launch in fewer waves,
-    else its natural one (one wave of the wide form takes longer)."""
+    else its natural one (one wave of the wide form takes longer); at
+    L = 52, where only the natural form is built, always that one."""
+    assert tuple(H100_WAVES[L]) == cuda_point.mixed_g1_forms(L)
     assert cuda_point.mixed_g1_form(n, H100_WAVES[L]) == form

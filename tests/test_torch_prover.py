@@ -3,7 +3,10 @@ version) against the JAX package's exact prover: the same key,
 assignment, r and s give the same proof, coordinate for coordinate; the
 proof verifies under both packages' verifiers and fails with a wrong
 public input.  Also: the key carried over from the JAX package's
-upload_proving_key equals the port's own upload, digit for digit."""
+upload_proving_key equals the port's own upload, digit for digit.  The
+2^6 DummyCircuit proves of three curves (19-24 s each) are in
+test_torch_prover_2p6.py, a file of three cases, which pytest-xdist's
+--dist loadfile hands out after the long tests/test_gadget.py."""
 
 import dataclasses
 import functools
@@ -100,12 +103,6 @@ def _dummy_setup(curve):
     rng = JRng(0x2B6)
     jpk, jvk = jsetup(JDummy(NVAR, NCON), curve, rng)
     return jpk, jvk, rng.field_element(c.r), rng.field_element(c.r)
-
-
-@pytest.mark.parametrize("curve", ["bn254", "bls12_381", "bls12_377"])
-def test_prover_dummy_2p6(curve):
-    jpk, jvk, r, s = _dummy_setup(curve)
-    _check(curve, jpk, jvk, JDummy(NVAR, NCON, a=3, b=5), DummyCircuit(NVAR, NCON, a=3, b=5), 15, r, s)
 
 
 def test_device_key_carried_over_from_jax():

@@ -103,7 +103,7 @@ def test_speed_of_light_counts_match_jax():
     from groth16_tpu_torch.fields.spec import make_spec
     from groth16_tpu_torch.utils import profiling
 
-    n = 8
+    n = cuda_fp.PLAIN_INT_MAX_N + 8  # the int64 CIOS (fewer elements run on Python ints)
     for modulus in (get_curve("bn254").p, get_curve("bls12_381").p):
         spec = make_spec(modulus)
         L = spec.n_limbs
