@@ -8,14 +8,15 @@ Run from the root of a checkout, on a machine with the card and nvcc:
 Phases, each printing one JSON line:
 
   card      the card, torch and CUDA versions; builds every CUDA kernel of
-            the bn254, bls12_377, bw6_761 and bls12_381 proves and setups
-            (bw6_761: its L = 52 libraries over Fq only, its G2 lying over
-            Fq) and the op-rate microbenchmark from groth16_tpu_torch/csrc
-            (one nvcc per library, all started together) with each one's
-            seconds, registers, stack and spills (K1's, K6's and K7's on a
-            line of their own), and beside them the verifier's native C++
-            engine (g++), which must load for bn254, bls12_377, bw6_761 and
-            bls12_381;
+            the bn254, bls12_377, bw6_761, bls12_381, mnt4_298 and mnt6_298
+            proves and setups (bw6_761: its L = 52 libraries over Fq only,
+            its G2 lying over Fq; MNT: K1 and the generic-a full additions
+            at L = 21 over Fq, Fq2 and Fq3) and the op-rate microbenchmark
+            from groth16_tpu_torch/csrc (one nvcc per library, all started
+            together) with each one's seconds, registers, stack and spills
+            (K1's, K6's and K7's, and the generic-a ones, on lines of their
+            own), and beside them the verifier's native C++ engine (g++),
+            which must load for all six curves;
   ubench    kernel V (the op-rate microbenchmark) for its seven operations at
             N = 2^20, R = 2048, each held against its plain version (at R = 16
             and at R = 2048) and timed, with the SASS each compiled to and the
@@ -46,7 +47,9 @@ Phases, each printing one JSON line:
             device assembly at its shapes (3 and 2 G1 lanes, 1 G2 lane, the
             curve order's bits) and at 33 and 4,101 lanes of 64 bits (a
             lane of zeros, one of ones, the others random), each timed
-            and its time a chain addition printed beside Horner's;
+            and its time a chain addition printed beside Horner's (the
+            plain versions of Horner and of the scalar multiplication at
+            up to 8 lanes run on CPU copies of the same inputs);
   reference the prove of a 2^6 DummyCircuit on the card against the exact
             prover, coordinate for coordinate;
   main_path TorchProver(pk, matrices) on cuda with the default fused MSM
@@ -146,7 +149,26 @@ Phases, each printing one JSON line:
             and K7 held against their plain versions at its widest
             launches, K6's two forms timed at the points of each of its
             launches); every proof must verify
-            with public input 15 and fail with 16.
+            with public input 15 and fail with 16;
+  mnt       K1 at L = 21 (both MNT fields, 2^16 and 2^20 elements, a 2^9
+            period and a constant) against its plain version, then
+            mnt4_298 at 2^16 (a = 2, G2 over Fq2 with nonresidue 17) and
+            mnt6_298 at the reference's 2^20 (a = 11, G2 over Fq3, its
+            Fr's mixed-radix domain of 2^15 * 35), each: the port's bench
+            with a fresh setup on the card (its line printed, verified on
+            the native engine), 64 points of each query checked on the
+            host, the generic-a group kernel over Fq and over G2's field at
+            1-4,101 points and at 2^16 (with the infinity, P + P and
+            P + (-P) lanes), Horner at the prove's MSM shapes and the
+            scalar multiplication at the device assembly's, each timed
+            beside its bound; one counted prove (K1 at
+            L = 21 and the generic-a additions launch, no K2, K3, K6 or K7,
+            no plain version on the card), a device-assembled prove with
+            the same r and s (equal), both verified with 15 and rejected
+            with 16, a steady prove under torch.profiler (the card's events
+            only); mnt6_298's mixed-radix fft at the prove's size against a
+            direct evaluation at 4 sampled points; a 2^6 proof of each
+            curve equal to the exact prover's.
 
 Then the `kernels` line (every kernel with its launches on each path), the
 card's name and power limit as nvidia-smi gives them, and last
@@ -266,16 +288,22 @@ def bound(nbytes: float, mads: float) -> dict:
     return out
 
 
-def point_bound(nbytes: float, adds: int, L: int, fp2: bool = False, mixed: bool = False) -> dict:
+def point_bound(nbytes: float, adds: int, L: int, fp2: bool = False, mixed: bool = False, g=None) -> dict:
     """bound() of `adds` point additions that move nbytes, their products
     counted on the word engine (utils/profiling.point_add_word_ops: the
     fewest multiply-adds the port does a product in, as K1 and K6 do it),
     and the same with the 15-bit digit count (point_add_u32_ops) beside
-    it as bound_15bit_ms and bound_15bit_by."""
-    from groth16_tpu_torch.utils.profiling import point_add_u32_ops, point_add_word_ops
+    it as bound_15bit_ms and bound_15bit_by.  For curve ops g with a != 0
+    (MNT) the generic-a law's counts (point_add_general_*_ops: the
+    products that law needs over g's field, 14 over Fq)."""
+    from groth16_tpu_torch.utils import profiling as pf
 
-    digit = bound(nbytes, adds * point_add_u32_ops(L, fp2, mixed))
-    return {**bound(nbytes, adds * point_add_word_ops(L, fp2, mixed)),
+    if g is not None and not g.a_is_zero:
+        words, digits = pf.point_add_general_word_ops(g), pf.point_add_general_u32_ops(g)
+    else:
+        words, digits = pf.point_add_word_ops(L, fp2, mixed), pf.point_add_u32_ops(L, fp2, mixed)
+    digit = bound(nbytes, adds * digits)
+    return {**bound(nbytes, adds * words),
             "bound_15bit_ms": digit["bound_ms"], "bound_15bit_by": digit["bound_by"]}
 
 
@@ -298,7 +326,8 @@ def phase_card():
 
     names = [
         name
-        for c in (get_curve(CURVE), get_curve(BLS_CURVE), get_curve(B377_CURVE), get_curve(BW6_CURVE))
+        for c in (get_curve(CURVE), get_curve(BLS_CURVE), get_curve(B377_CURVE), get_curve(BW6_CURVE),
+                  get_curve(MNT4_CURVE), get_curve(MNT6_CURVE))
         for name in cuda_build.curve_variants(c)
     ] + ["ubench_ops"]
     # the verifier's native engine (g++) builds beside the nvcc wave
@@ -314,7 +343,8 @@ def phase_card():
     native.start()
     reports = cuda_build.build(dict.fromkeys(names))
     native.join()
-    missing = [c for c in (CURVE, B377_CURVE, BLS_CURVE, BW6_CURVE) if native_pairing(c) is None]
+    missing = [c for c in (CURVE, B377_CURVE, BLS_CURVE, BW6_CURVE, MNT4_CURVE, MNT6_CURVE)
+               if native_pairing(c) is None]
     if missing:
         raise AssertionError(f"the native verifier engine is unavailable for {missing}")
     emit({
@@ -343,6 +373,14 @@ def phase_card():
         f"{n}: {kernel_name(k)}": v
         for n, r in reports.items() if "_full_" in n
         for k, v in ptxas_summary(r["ptxas"]).items() if "scalar_mul" in k or "horner" in k
+    }})
+    # the L = 21 libraries of MNT4-298 and MNT6-298: K1's L = 21 instances
+    # are in the mont_mul line above; the generic-a group kernel, Horner and
+    # scalar multiplication over Fq, Fq2 (NR = 17) and Fq3 (NR = 5)
+    emit({"phase": "card", "generic_a_ptxas": {
+        f"{n}: {kernel_name(k)}": v
+        for n, r in reports.items() if n.endswith("_ga")
+        for k, v in ptxas_summary(r["ptxas"]).items()
     }})
 
 
@@ -531,7 +569,7 @@ def phase_setup():
 def _is_g2(c, g) -> bool:
     """Whether the curve ops g are curve c's G2: over Fq2, or (BW6-761)
     over Fq with G2's b3, which then runs G1's kernels."""
-    return g.k.tower_deg == 2 or (c.g2_over_base and g.b3_val == 3 * c.b2 % c.p)
+    return g.k.tower_deg >= 2 or (c.g2_over_base and g.b3_val == 3 * c.b2 % c.p)
 
 
 def _key_points(dpk, g):
@@ -555,13 +593,12 @@ def _kernel_inputs(src, g, n, device):
 
     m = max(n, 8)
     k = g.k
-    nr = getattr(k, "nr_int", None)
-    plain = cuda_point._plain_ops(k.spec, nr)
+    plain = cuda_point.plain_ops(k)
     finite = torch.nonzero(~g.is_infinity(src)).reshape(-1)
     idx = finite[torch.arange(m, device=device) % finite.numel()]
     A = tuple(x[..., idx].contiguous() for x in src)  # affine uploads, Z = 1
     B = tuple(torch.roll(x, 7, dims=-1) for x in A)
-    P1 = cuda_point.add_plain(plain, g.b3_val, A, B)  # projective, Z != 1
+    P1 = cuda_point.add_plain(plain, g.b3_val, A, B, g.a_val)  # projective, Z != 1
     inf = g.infinity((1,), device=device)
 
     def put(pt, j, col):
@@ -757,7 +794,7 @@ def _point_kernels(dpk, c, n, device, mixed):
             g1_tag, _, _, replaces = POINT_KERNELS[name.replace("g2", "g1")]
             tag = f"{g1_tag} (G2's b3)"
         p1, p2, p1m, xy = _kernel_inputs(_key_points(dpk, g), g, n, device)
-        plain_ops = cuda_point._plain_ops(g.k.spec, getattr(g.k, "nr_int", None))
+        plain_ops = cuda_point.plain_ops(g.k)
         add = g.add_affine if is_mixed else g.add
         if is_mixed:
             run = lambda: add(p1m, xy)  # noqa: E731
@@ -767,7 +804,7 @@ def _point_kernels(dpk, c, n, device, mixed):
             nbytes = (3 + 2 + 3) * L * deg * 4 * n
         else:
             run = lambda: add(p1, p2)  # noqa: E731
-            run_plain = lambda: cuda_point.add_plain(plain_ops, g.b3_val, p1, p2)  # noqa: E731
+            run_plain = lambda: cuda_point.add_plain(plain_ops, g.b3_val, p1, p2, g.a_val)  # noqa: E731
             live = n
             nbytes = (3 + 3 + 3) * L * deg * 4 * n
         got, want = run(), run_plain()
@@ -778,7 +815,7 @@ def _point_kernels(dpk, c, n, device, mixed):
         ms, plain_ms = queued_ms(run)[0], time_ms(run_plain)
         row = {"kernel": f"{tag} {name}", "curve": c.name, "n": n, "live": live, "tolerance": 0,
                "max_abs_err": max_abs_err(got, want), "ms": ms, "plain_ms": plain_ms,
-               **point_bound(nbytes, live, L, deg == 2, is_mixed)}
+               **point_bound(nbytes, live, L, deg == 2, is_mixed, g=g)}
         emit({"phase": "kernels", **row})
         entries[name] = {
             "name": name, "route": "cuda", "source": "groth16_tpu_torch/csrc/point_add.cu",
@@ -801,11 +838,11 @@ def _add_run(name, g, mixed, src, n, device):
     from src by _kernel_inputs."""
     from groth16_tpu_torch.curves import cuda_point
 
-    plain_ops = cuda_point._plain_ops(g.k.spec, getattr(g.k, "nr_int", None))
+    plain_ops = cuda_point.plain_ops(g.k)
     p1, p2, p1m, xy = _kernel_inputs(src, g, n, device)
     if mixed:
         return (lambda: g.add_affine(p1m, xy)), (lambda: cuda_point.mixed_add_plain(plain_ops, g.b3_val, p1m, xy))
-    return (lambda: g.add(p1, p2)), (lambda: cuda_point.add_plain(plain_ops, g.b3_val, p1, p2))
+    return (lambda: g.add(p1, p2)), (lambda: cuda_point.add_plain(plain_ops, g.b3_val, p1, p2, g.a_val))
 
 
 def _check_adds(src_of, c, device, sizes):
@@ -865,7 +902,7 @@ K6_FORM_N = (1 << 16, 1 << 17, 1 << 18, 1 << 20)
 K6_FORM_ROUNDS = 3
 
 
-def _k6_forms(src_of, c, device, sizes=None, check=True):
+def _k6_forms(src_of, c, device, sizes=None, check=True, rounds=K6_FORM_ROUNDS):
     """K6 in each of its forms at curve c's L (cuda_point.mixed_g1_forms:
     the word kernel at its natural and at a forced occupancy), held
     against the plain version at 2^16 points where `check`, then timed (queued_ms) at
@@ -898,7 +935,7 @@ def _k6_forms(src_of, c, device, sizes=None, check=True):
                         raise AssertionError(f"K6 form {form} on {c.name} at n = {n}: differs from the plain version")
                 ms[form][n] = []
             del want
-            for _ in range(K6_FORM_ROUNDS):
+            for _ in range(rounds):
                 for form in forms:
                     cuda_point.mixed_g1_form = lambda n_, w_, f=form: f  # noqa: E731
                     ms[form][n].append(queued_ms(run)[0])
@@ -941,12 +978,12 @@ def _horner_sums(g, src, lanes, W, device):
     from groth16_tpu_torch.curves import cuda_point
 
     k = g.k
-    plain = cuda_point._plain_ops(k.spec, getattr(k, "nr_int", None))
+    plain = cuda_point.plain_ops(k)
     m = lanes * W
     finite = torch.nonzero(~g.is_infinity(src)).reshape(-1)
     idx = finite[torch.arange(m, device=device) % finite.numel()]
     A = tuple(x[..., idx].contiguous() for x in src)
-    pts = cuda_point.add_plain(plain, g.b3_val, A, tuple(torch.roll(x, 5, dims=-1) for x in A))
+    pts = cuda_point.add_plain(plain, g.b3_val, A, tuple(torch.roll(x, 5, dims=-1) for x in A), g.a_val)
     inf = g.infinity((1,), device=device)
     pts = tuple(torch.cat([i, x[..., 1:]], dim=-1) for i, x in zip(inf, pts))
     return tuple(x.reshape(x.shape[:-1] + (lanes, W)).contiguous() for x in pts)
@@ -957,7 +994,9 @@ def _horner_kernels(shapes, c, device):
     it replaces, on the card) at the MSM shapes the prove gives it:
     shapes[name] = [(src points, lanes, n)] for horner_g1 and horner_g2,
     each run at msm_plan's c and window count; timed (queued_ms).  The
-    kernel-line numbers are the sums over one prove's calls."""
+    kernel-line numbers are the sums over one prove's calls.  The plain
+    version runs on CPU copies of the inputs (plain_run; at most 4 lanes
+    at the proves' shapes)."""
     import torch
 
     from groth16_tpu_torch.curves import codec, cuda_point
@@ -968,15 +1007,17 @@ def _horner_kernels(shapes, c, device):
     for name, g in (("horner_g1", codec.g1_ops(c)), ("horner_g2", codec.g2_ops(c))):
         k = g.k
         D, L = k.tower_deg, k.spec.n_limbs
-        nr = getattr(k, "nr_int", None)
-        plain_ops = cuda_point._plain_ops(k.spec, nr)
+        plain_ops = cuda_point.plain_ops(k)
         calls, err = [], 0
         for src, lanes, n in shapes[name]:
-            plan = msm_plan(n, lanes, sbits, D * L)
+            plan = msm_plan(g, n, lanes, sbits)
             W = plan.n_groups * plan.wg
             sums = _horner_sums(g, src, lanes, W, device)
             got = g.horner(sums, plan.c)
-            want, plain_ms = timed_once(lambda: cuda_point.horner_plain(plain_ops, g.b3_val, sums, plan.c))
+            want, plain_ms = plain_run(
+                lambda x: cuda_point.horner_plain(plain_ops, g.b3_val, x, plan.c, g.a_val), (sums,),
+                lanes <= PLAIN_CPU_MAX_LANES,
+            )
             torch.cuda.synchronize()
             if not all(torch.equal(x, y) for x, y in zip(got, want)):
                 raise AssertionError(f"{name} on {c.name} (lanes {lanes}, c {plan.c}, {W} windows): kernel and plain version disagree")
@@ -985,14 +1026,15 @@ def _horner_kernels(shapes, c, device):
             adds = lanes * W * (plan.c + 1)
             calls.append({"lanes": lanes, "msm_points": n, "c": plan.c, "windows": W, "adds": adds,
                           "ms": ms, "ms_per_chain_addition": ms / (W * (plan.c + 1)), "plain_ms": plain_ms,
-                          **point_bound(3 * D * L * 4 * lanes * (W + 1), adds, L, D == 2)})
+                          **point_bound(3 * D * L * 4 * lanes * (W + 1), adds, L, D == 2, g=g)})
         row = {"kernel": name, "curve": c.name, "tolerance": 0, "max_abs_err": err, "calls": calls,
                **{key: sum(x[key] for x in calls) for key in ("ms", "plain_ms", "bound_ms", "bound_published_ms")},
-               "bound_by": calls[0]["bound_by"], "bound_published_by": calls[0]["bound_published_by"]}
+               "bound_by": calls[0]["bound_by"], "bound_published_by": calls[0]["bound_published_by"],
+               "plain_on": "cpu" if all(x["lanes"] <= PLAIN_CPU_MAX_LANES for x in calls) else "cuda"}
         emit({"phase": "kernels", **row})
         entries[name] = {
             "name": name, "route": "cuda", "source": "groth16_tpu_torch/csrc/point_add.cu",
-            "replaces": POINT_KERNELS[f"add_g{D}"][3], **_kline(row),
+            "replaces": POINT_KERNELS[f"add_g{min(D, 2)}"][3], **_kline(row),
             "ms_per_chain_addition": [x["ms_per_chain_addition"] for x in calls],
         }
     return entries
@@ -1017,7 +1059,9 @@ def _scalar_mul_kernels(src_of, c, device, horner, seed, extra_lanes=SCALAR_MUL_
     (queued_ms) beside its bound, and its time a chain addition (the
     launch's sequential additions) beside Horner's (`horner`: this
     curve's Horner entries).  src_of(g): the points the inputs come from.
-    Returns the kernels-line entries (the 3-lane G1 and the G2 shapes)."""
+    The plain version runs on CPU copies of the inputs up to
+    PLAIN_CPU_MAX_LANES lanes (plain_run), on the card past them.  Returns
+    the kernels-line entries (the 3-lane G1 and the G2 shapes)."""
     import numpy as np
     import torch
 
@@ -1033,7 +1077,7 @@ def _scalar_mul_kernels(src_of, c, device, horner, seed, extra_lanes=SCALAR_MUL_
     entries = {}
     for name, g in (("scalar_mul_g1", codec.g1_ops(c)), ("scalar_mul_g2", codec.g2_ops(c))):
         D = g.k.tower_deg
-        plain_ops = cuda_point._plain_ops(g.k.spec, getattr(g.k, "nr_int", None))
+        plain_ops = cuda_point.plain_ops(g.k)
         src = src_of(g)
         finite = torch.nonzero(~g.is_infinity(src)).reshape(-1)
         shapes = [("assembly [r, s, rs]", asm), ("assembly [s, r]", torch.stack([asm[1], asm[0]]))]
@@ -1047,13 +1091,16 @@ def _scalar_mul_kernels(src_of, c, device, horner, seed, extra_lanes=SCALAR_MUL_
             lanes, nbits = bits.shape
             idx = finite[torch.arange(lanes, device=device) % finite.numel()]
             A = tuple(x[..., idx].contiguous() for x in src)
-            pts = cuda_point.add_plain(plain_ops, g.b3_val, A, tuple(torch.roll(x, 7, dims=-1) for x in A))
+            pts = cuda_point.add_plain(plain_ops, g.b3_val, A, tuple(torch.roll(x, 7, dims=-1) for x in A), g.a_val)
             if lanes > 3:
                 inf = g.infinity((1,), device=device)
                 pts = tuple(torch.cat([x[..., :2], i, x[..., 3:]], dim=-1) for x, i in zip(pts, inf))
             run = lambda: g.scalar_mul_bits(pts, bits)  # noqa: E731
             got = run()
-            want, plain_ms = timed_once(lambda: cuda_point.scalar_mul_plain(plain_ops, g.b3_val, pts, bits))
+            plain_cpu = lanes <= PLAIN_CPU_MAX_LANES
+            want, plain_ms = plain_run(
+                lambda x, b: cuda_point.scalar_mul_plain(plain_ops, g.b3_val, x, b, g.a_val), (pts, bits), plain_cpu
+            )
             torch.cuda.synchronize()
             if not all(torch.equal(x, y) for x, y in zip(got, want)):
                 raise AssertionError(f"{name} on {c.name} ({label}, {nbits} bits): kernel and plain version disagree")
@@ -1066,8 +1113,9 @@ def _scalar_mul_kernels(src_of, c, device, horner, seed, extra_lanes=SCALAR_MUL_
             row = {"kernel": name, "curve": c.name, "shape": label, "lanes": lanes, "nbits": nbits,
                    "tolerance": 0, "max_abs_err": max_abs_err(got, want), "ms": ms, "plain_ms": plain_ms,
                    "additions": adds, "chain_additions": chain, "ms_per_chain_addition": ms / chain,
-                   "horner_ms_per_chain_addition": horner[f"horner_g{D}"]["ms_per_chain_addition"],
-                   **point_bound((6 * D * L + nbits) * 4 * lanes, adds, L, D == 2),
+                   "horner_ms_per_chain_addition": horner[f"horner_g{min(D, 2)}"]["ms_per_chain_addition"],
+                   "plain_on": "cpu" if plain_cpu else "cuda",
+                   **point_bound((6 * D * L + nbits) * 4 * lanes, adds, L, D == 2, g=g),
                    "card": card_line()}
             emit({"phase": "kernels", **row})
             if label in ("assembly [r, s, rs]", "assembly s"):
@@ -1142,6 +1190,27 @@ def timed_once(fn):
     return out, t0.elapsed_time(t1)
 
 
+# lanes up to which the plain versions of Horner and the scalar
+# multiplication run on CPU copies of their inputs (plain_run)
+PLAIN_CPU_MAX_LANES = 8
+
+
+def plain_run(fn, args, on_cpu=False):
+    """(fn(*args), ms): timed_once on the card, or (on_cpu) on CPU copies
+    of the same tensors (a host-clock time; the Horner chains and the
+    assembly's scalar multiplications, whose plain versions are hundreds
+    of sequential additions of a few lanes: on the card each addition is
+    dozens of launches: ~300 s of the script's time), the
+    result brought back to the card.  args: tensors or tuples of them."""
+    if not on_cpu:
+        return timed_once(lambda: fn(*args))
+    host = [tuple(x.cpu() for x in a) if isinstance(a, tuple) else a.cpu() for a in args]
+    t0 = time.time()
+    out = fn(*host)
+    ms = (time.time() - t0) * 1e3
+    return tuple(x.cuda() for x in out), ms
+
+
 # S values of the segment sweep of the scans (filled rows, those that leave
 # a segment SWEEP_MIN_STEPS steps), beside the chosen one
 SCAN_SWEEP = (1, 4, 8, 16, 32, 64, 128)
@@ -1189,7 +1258,7 @@ def _scan_kernels(dpk, c, rng, device, sweep=True):
         nr = getattr(k, "nr_int", None)
         ce = D * L
         lanes, n = g.batch_shape(pts)
-        plan = msm_plan(n, lanes, sbits, ce)
+        plan = msm_plan(g, n, lanes, sbits)
         R, K, C = lanes * plan.wg, plan.K, plan.C
         npad = K * C
         pts = tuple(x[..., :npad] for x in pts)
@@ -1239,24 +1308,26 @@ PORT_KERNEL = r"void \(anonymous namespace\)::((?:mont_mul|point_add_words|point
 
 
 def profile_prove(prove) -> dict:
-    """Device time of one prove from a torch.profiler trace: the summed
-    durations of what the card ran (one stream, so nothing overlaps) and
-    the kernels that took most of it.  None where the trace holds no
-    device events."""
+    """Device time of one prove from a torch.profiler trace of the card
+    alone: the summed durations of what the card ran (one stream, so
+    nothing overlaps) and the kernels that took most of it.  None where
+    the trace holds no device events.  The raw trace is read (kineto's
+    events): the profiler's own event tree takes minutes for a prove of
+    ~10^5 launches (MNT6-298's 2^20 capture scan)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
         proof = prove()
         torch.cuda.synchronize()
         wall = time.time() - t0
     by_name = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            n, us = by_name.get(e.name, (0, 0.0))
-            by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            n, us = by_name.get(e.name(), (0, 0.0))
+            by_name[e.name()] = (n + 1, us + e.duration_ns() / 1e3)
     busy_us = sum(us for _, us in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
     # the port's own kernels of the prove (csrc/), every one
@@ -1340,6 +1411,8 @@ def zero_counts():
         for d in (*m.LAUNCH_SIZES.values(), m.LARGEST_LAUNCH):
             for k in d:
                 d[k] = 0
+    for k in cuda_point.GENERAL_A_LAUNCHES:
+        cuda_point.GENERAL_A_LAUNCHES[k] = 0
 
 
 def launch_sizes() -> dict:
@@ -1478,12 +1551,12 @@ def phase_capture_path(prover, cs, first):
         "k6_k7_digit_equal_at_n": widest, "k6_launches_by_points": k6_sizes, "profile": prof,
     })
     # K6's two forms at the points of this prove's launches
-    _k6_forms(src_of, get_curve(CURVE), prover.device, sizes=list(k6_sizes), check=False)
+    _k6_forms(src_of, get_curve(CURVE), prover.device, sizes=list(k6_sizes), check=False, rounds=1)
     return launches
 
 
 BATCH = 4  # bench.py's batch of 2^16 proofs
-BATCH_ROUNDS = 3
+BATCH_ROUNDS = 2
 ASSEMBLY_KERNELS = ("mont_mul", "add_g1", "add_g2", "scalar_mul_g1", "scalar_mul_g2")
 
 
@@ -2017,6 +2090,182 @@ def phase_bw6(device):
              "bw6_761_device_assembly": assembly}, rows)
 
 
+# MNT4-298 and MNT6-298 (a = 2 and 11; L = 21 for their 298-bit fields):
+# the generic-a full additions (over Fq, over MNT4's Fq2 with NR = 17 and
+# over MNT6's Fq3) and K1 at L = 21 carry the prove; the JAX package runs
+# no scan kernel and no mixed addition there, so neither may launch
+MNT4_CURVE, MNT4_LOG_N = "mnt4_298", 16
+MNT6_CURVE, MNT6_LOG_N = "mnt6_298", 20
+MNT_MAIN = ("mont_mul", "add_g1", "add_g2", "horner_g1", "horner_g2")
+MNT_ASSEMBLY = MNT_MAIN + ("scalar_mul_g1", "scalar_mul_g2")
+MNT_A0_KERNELS = ("add_mixed_g1", "add_mixed_g2", "suffix_scan_g1", "suffix_scan_g2")
+# K1 at L = 21: MNT4-298's p (= MNT6-298's r) and MNT6-298's p (= MNT4-298's
+# r) at 2^16 and 2^20 elements, against a 2^9 period and a constant
+K1_SIZES_MNT = (
+    ("mnt6_298.Fq", 16, None), ("mnt6_298.Fq", 20, None), ("mnt4_298.Fq", 16, None),
+    ("mnt4_298.Fq", 20, None), ("mnt4_298.Fq", 20, 1 << 9), ("mnt4_298.Fq", 16, 1),
+)
+# points a launch at which the generic-a group kernel is held against its
+# plain version beside the 2^16 of _point_kernels
+MNT_ADD_CHECK_N = (1, 3, 33, 4096 + 5)
+
+
+def _mnt_counts(kernels, what, g2_deg):
+    """read_counts(kernels) with K1's launches at each L and the generic-a
+    launches by kernel and field degree; raises if K1 ran nothing at
+    L = 21, if the generic-a full addition did not launch over Fq and over
+    G2's field, if any full addition ran another law, or if a kernel of
+    the a = 0 law (K2, K3, K6, K7) launched."""
+    from groth16_tpu_torch.curves import cuda_point
+    from groth16_tpu_torch.fields import cuda_fp
+
+    launches = read_counts(kernels)
+    ran = {k: launches[k] for k in MNT_A0_KERNELS if launches[k]}
+    if ran:
+        raise AssertionError(f"{what}: a kernel of the a = 0 law launched: {ran}")
+    by_l = {k: v for k, v in cuda_fp.LAUNCH_SIZES["mont_mul"].items() if k.startswith("L")}
+    if by_l["L21"] == 0:
+        raise AssertionError(f"{what}: no K1 launch at L = 21")
+    general = {k: v for k, v in cuda_point.GENERAL_A_LAUNCHES.items() if v}
+    adds = general.get("add_d1", 0) + general.get(f"add_d{g2_deg}", 0)
+    if not (general.get("add_d1") and general.get(f"add_d{g2_deg}")) or adds != launches["add_g1"] + launches["add_g2"]:
+        raise AssertionError(f"{what}: the generic-a additions did not carry every full addition: {general}")
+    return dict(launches, mont_mul_by_limbs=by_l, general_a=general)
+
+
+def _mnt_kernels(dpk, c, device, seed):
+    """The generic-a group kernel of curve c over G1's Fq and G2's Fq2 or
+    Fq3 on its key's points against the plain version, at MNT_ADD_CHECK_N
+    points and at N_KERNEL (timed; with the infinity, P + P and P + (-P)
+    lanes), Horner at the prove's MSM shapes and the scalar multiplication
+    at the device assembly's, each timed beside its bound."""
+    src_of = lambda g: _key_points(dpk, g)  # noqa: E731
+    _check_adds(src_of, c, device, {"add_g1": MNT_ADD_CHECK_N, "add_g2": MNT_ADD_CHECK_N})
+    rows = {**_point_kernels(dpk, c, N_KERNEL, device, mixed=(False,)),
+            **_horner_kernels(_prove_horner_shapes(dpk), c, device)}
+    rows.update(_scalar_mul_kernels(src_of, c, device, rows, seed, extra_lanes=()))
+    return rows
+
+
+def _mnt_fft_check(domain, device, seed, points=4):
+    """The mixed-radix fft at the prove's domain size against a direct
+    evaluation (Python ints) of the polynomial (62-bit coefficients) at
+    `points` sampled domain points, and ifft(fft(a)) == a (on the card,
+    after reduction to [0, p))."""
+    import numpy as np
+    import torch
+
+    from groth16_tpu_torch.fields import fp
+    from groth16_tpu_torch.fields.spec import decode, encode
+
+    rng = np.random.default_rng(seed)
+    p, n = domain.field.modulus, domain.size
+    coeffs = [int(x) for x in rng.integers(0, 1 << 62, n)]
+    a = torch.from_numpy(encode(coeffs, domain.spec).astype(np.int32)).to(device)
+    t0 = time.time()
+    ev = domain.fft(a)
+    back = domain.ifft(ev)
+    torch.cuda.synchronize()
+    card_s = time.time() - t0
+    idx = sorted(int(i) for i in rng.choice(n, size=points, replace=False))
+    got = decode(ev[:, idx].cpu().numpy(), domain.spec)
+    for i, v in zip(idx, got):
+        x, acc = pow(domain.group_gen, i, p), 0
+        for cf in reversed(coeffs):
+            acc = (acc * x + cf) % p
+        if acc != v:
+            raise AssertionError(f"the mixed-radix fft differs from the polynomial at w^{i}")
+    if not torch.equal(fp.normalize(domain.spec, back, bound_k=2), a):
+        raise AssertionError("ifft(fft(a)) != a on the mixed-radix domain")
+    return {"size": n, "radixes": list(domain.radixes), "points_checked": idx, "fft_and_ifft_s": card_s,
+            "ifft_of_fft_equal": True}
+
+
+def _phase_mnt(device, curve, log_n, seed):
+    """One MNT curve at 2^log_n: the port's bench with a fresh setup on
+    the card (its line printed, verified on the native engine), 64 points
+    of each query of its key checked on the host, the generic-a kernels
+    on its key (_mnt_kernels), one counted prove (K1 at L = 21 and the
+    generic-a additions launch; no K2, K3, K6 or K7; no plain version on
+    the card), a device-assembled prove with the same r and s (the
+    scalar multiplication; the same proof), both verified with 15 and
+    rejected with 16, a steady prove under torch.profiler, a 2^6 proof
+    equal to the exact prover's.  Returns (launches by path, rows)."""
+    import torch
+
+    from groth16_tpu_torch.bench import run
+    from groth16_tpu_torch.curves.params import get_curve
+    from groth16_tpu_torch.utils.rng import Rng
+
+    c = get_curve(curve)
+    g2_deg = c.g2_field_degree
+    out = {"phase": curve, "curve": curve, "log_n": log_n, "a": c.a, "g2_field_degree": g2_deg,
+           "nonresidue": c.fp2_nonresidue}
+    keep = {}
+    zero_counts()
+    out["bench"] = run(curve, log_n, device=device, keep=keep)
+    out["bench_launches"] = _mnt_counts(MNT_MAIN, f"{curve} bench", g2_deg)
+    if out["bench"]["extras"]["verify_engine"] != "native":
+        raise AssertionError(f"the {curve} bench did not verify on the native engine")
+    _step(out, "bench")
+    pk, prover, z = keep["pk"], keep["prover"], keep["z"]
+    out["setup_phases_s"] = keep["setup_phases_s"]
+    out["domain"] = {"size": prover.dpk.domain.size, "radixes": list(prover.dpk.domain.radixes)}
+    t0 = time.time()
+    out["sampled_points_checked"] = _check_sampled(curve, pk, keep.pop("record"))
+    out["sampled_check_s"] = time.time() - t0
+    _step(out, "key")
+    rows = _mnt_kernels(prover.dpk, c, device, seed)
+    _step(out, "kernels")
+    rng = Rng(seed)
+    r, s = rng.field_element(c.r), rng.field_element(c.r)
+    zero_counts()
+    t0 = time.time()
+    proof = prover.prove(z, r, s)
+    torch.cuda.synchronize()
+    out["prove_s"] = time.time() - t0
+    out["launches_per_prove"] = launches = _mnt_counts(MNT_MAIN, f"{curve} prove", g2_deg)
+    out["launches_by_size"] = launch_sizes()
+    zero_counts()
+    assembled = prover.prove(z, r, s, host_assembly=False)
+    assembly = _mnt_counts(MNT_ASSEMBLY, f"{curve} device-assembled prove", g2_deg)
+    if not _same(assembled, proof):
+        raise AssertionError(f"the {curve} device-assembled proof differs from the host-assembled one")
+    _verify_all(keep["vk"], [proof, assembled], curve)
+    z_enc = prover.encode_assignment(z)
+    t0 = time.time()
+    _, prof = profile_prove(lambda: prover.prove_encoded_host(z_enc, r, s))
+    prof["profile_s"] = time.time() - t0
+    if prof["device_busy_s"] is not None:
+        prof["device_busy_share"] = prof["device_busy_s"] / prof["profiled_wall_s"]
+    out.update(device_assembly_launches_per_prove=assembly, device_assembly_equal=True, proofs_verified=2,
+               wrong_input_rejected=True, profile=prof, card=card_line())
+    _step(out, "prove")
+    if prover.dpk.domain.radixes:
+        out["mixed_radix_fft"] = _mnt_fft_check(prover.dpk.domain, device, seed)
+        _step(out, "fft")
+    del keep, prover, pk
+    phase_reference(device, curve)
+    return ({curve: launches, f"{curve}_device_assembly": assembly}, rows)
+
+
+def phase_mnt(device):
+    """MNT4-298 at 2^16 (G2 over Fq2 with NR = 17, a = 2) and MNT6-298 at
+    the bench's 2^20 (its Fr's mixed-radix domain of 2^15 * 35, G2 over
+    Fq3, a = 11), each through _phase_mnt, after K1 at L = 21 against its
+    plain version (K1_SIZES_MNT).  Returns the launches by path and the
+    kernel rows of each curve."""
+    import numpy as np
+
+    rows = {"mont_mul": _mont_mul_kernel(np.random.default_rng(0x298), device, K1_SIZES_MNT)}
+    launches, by_curve = {}, {}
+    for curve, log_n, seed in ((MNT4_CURVE, MNT4_LOG_N, 0x4A), (MNT6_CURVE, MNT6_LOG_N, 0x6A)):
+        l, r = _phase_mnt(device, curve, log_n, seed)
+        launches.update(l)
+        by_curve[curve] = r
+    return launches, rows, by_curve
+
+
 VERIFY_REPS = 5
 
 
@@ -2255,7 +2504,7 @@ def _bls_capture(out, prover, z_enc, first, want, c, device):
         "k6_launches_by_points": k6_sizes, "profile": prof, "card": card_line(),
     }
     # K6's two forms at the points of this prove's launches
-    _k6_forms(src_of, c, device, sizes=list(k6_sizes), check=False)
+    _k6_forms(src_of, c, device, sizes=list(k6_sizes), check=False, rounds=1)
     _step(out, "capture")
     return launches, proofs
 
@@ -2284,14 +2533,18 @@ def main() -> int:
     b377, b377_rows, k3_shape = phase_bls377(device)
     bw6, bw6_rows = phase_bw6(device)
     bls, bls_rows = phase_bls(device, k3_shape)
+    mnt, mnt_k1, mnt_rows = phase_mnt(device)
     kernels = []
     for name, e in entries.items():
         by_path = {"main": launches.get(name, 0), "capture": capture.get(name, 0),
                    **{p: n.get(name, 0) for p, n in paths.items()},
                    "setup": setup.get(name, 0), **{p: n.get(name, 0) for p, n in b377.items()},
                    **{p: n.get(name, 0) for p, n in bw6.items()},
-                   **{p: n.get(name, 0) for p, n in bls.items()}}
-        for curve, other in ((B377_CURVE, b377_rows), (BW6_CURVE, bw6_rows), (BLS_CURVE, bls_rows)):
+                   **{p: n.get(name, 0) for p, n in bls.items()},
+                   **{p: n.get(name, 0) for p, n in mnt.items()}}
+        for curve, other in ((B377_CURVE, b377_rows), (BW6_CURVE, bw6_rows), (BLS_CURVE, bls_rows),
+                             ("L21", mnt_k1), (MNT4_CURVE, mnt_rows[MNT4_CURVE]),
+                             (MNT6_CURVE, mnt_rows[MNT6_CURVE])):
             if name in other:
                 e = dict(e, **{curve: {k: v for k, v in other[name].items() if k not in e or e[k] != v}})
         # the main path's launches, else those of the first path that ran it

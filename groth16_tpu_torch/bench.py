@@ -32,9 +32,13 @@ and three keys of its own:
 The speed-of-light fractions divide the achieved point additions (or
 butterflies) a second by the card's measured 32-bit multiply rate (kernel
 V, `utils/ubench.mul_rate`) over the multiply-adds of one addition
-(`utils/profiling.point_add_u32_ops`, the mixed formula) or of one
-butterfly (one Montgomery product, `mont_mul_u32_ops`): 1.0 would be a
-card that multiplies and does nothing else.
+(`utils/profiling.point_add_u32_ops`, the mixed formula; for MNT4-298
+and MNT6-298, `point_add_general_u32_ops`, the generic-a full addition
+of their capture scan) or of one butterfly (one Montgomery product,
+`mont_mul_u32_ops`): 1.0 would be a card that multiplies and does
+nothing else.  On a mixed-radix domain (MNT6-298's Fr past 2^17) the
+butterfly count does not hold, so ntt_butterflies_per_s and ntt_sol_frac
+are null there and `ntt_note` says why.
 
 Settings, as `bench.py`: G16_BENCH_CURVE (bn254), G16_BENCH_LOGN (16),
 G16_BENCH_FRESH_SETUP (set: set the key up anew and time it).  The same
@@ -135,10 +139,14 @@ def run(curve: str = "bn254", log_n: int = 16, device="cuda", steady: int = 3, b
     """One bench line (the dict `main` prints).  cache: the key file (None:
     no cache, the key is set up every run); fresh_setup: drop the cached
     key first; keep: a dict that receives the key (pk, vk), the setup's
-    record of scalars (a fresh setup only), the prover and the assignment
-    z, for a caller that checks them further (chip_smoke.py)."""
+    record of scalars and its phase times (a fresh setup only:
+    generator_torch's synthesis, scalars, tables, batch_mul and decode;
+    scalars is the exact host instance map on a mixed-radix domain), the
+    prover and the assignment z, for a caller that checks them further
+    (chip_smoke.py)."""
     from groth16_tpu_torch.curves.params import get_curve
     from groth16_tpu_torch.fields.spec import encode, make_spec
+    from groth16_tpu_torch.curves import codec
     from groth16_tpu_torch.msm.pippenger import msm_plan
     from groth16_tpu_torch.native import native_pairing
     from groth16_tpu_torch.protocol.generator_torch import setup_device
@@ -154,6 +162,7 @@ def run(curve: str = "bn254", log_n: int = 16, device="cuda", steady: int = 3, b
         mont_mul_u32_ops,
         msm_work_point_adds,
         ntt_butterflies,
+        point_add_general_u32_ops,
         point_add_u32_ops,
     )
     from groth16_tpu_torch.utils.rng import Rng
@@ -178,10 +187,13 @@ def run(curve: str = "bn254", log_n: int = 16, device="cuda", steady: int = 3, b
         vk = pk.vk
     else:
         record = {} if keep is not None else None
-        pk, vk = setup_device(DummyCircuit(n_vars, n_constraints), curve, rng, device=dev, record=record)
+        setup_timer = PhaseTimer(verbose=False, device=str(dev))
+        pk, vk = setup_device(
+            DummyCircuit(n_vars, n_constraints), curve, rng, device=dev, timer=setup_timer, record=record
+        )
         _sync(dev)
         if keep is not None:
-            keep["record"] = record
+            keep.update(record=record, setup_phases_s=setup_timer.as_dict())
         extras["setup_s"] = time.perf_counter() - t0
         if cache:
             os.makedirs(os.path.dirname(cache) or ".", exist_ok=True)
@@ -233,32 +245,45 @@ def run(curve: str = "bn254", log_n: int = 16, device="cuda", steady: int = 3, b
     dpk = prover.dpk
     sbits = c.r.bit_length()
     L = make_spec(c.p).n_limbs
-    ce1, ce2 = L, L * (1 if c.g2_over_base else 2)
+    g1, g2 = codec.g1_ops(c), codec.g2_ops(c)
+    d2 = g2.k.tower_deg
     rate = ubench.mul_rate(device=dev) if on_card else None
     g1_adds = g1_points = 0
     for npad_g, lane_ids in dpk.g1_group_info:
-        cb_g = msm_plan(npad_g, len(lane_ids), sbits, ce1).c
+        cb_g = msm_plan(g1, npad_g, len(lane_ids), sbits).c
         g1_adds += len(lane_ids) * msm_work_point_adds(npad_g, sbits, cb_g, CONFIG.msm_signed_digits)
         g1_points += len(lane_ids) * npad_g
     n_g2 = len(pk.b_g2_query) - 1
-    g2_adds = msm_work_point_adds(n_g2, sbits, msm_plan(n_g2, 1, sbits, ce2).c, CONFIG.msm_signed_digits)
-    extras["msm_window_bits"] = msm_plan(dpk.n_pad, 1, sbits, ce1).c
+    g2_adds = msm_work_point_adds(
+        n_g2, sbits, msm_plan(g2, n_g2, 1, sbits).c, CONFIG.msm_signed_digits
+    )
+    extras["msm_window_bits"] = msm_plan(g1, dpk.n_pad, 1, sbits).c
+    # operations of one addition of each MSM's scan: the a = 0 mixed one,
+    # or (a != 0, MNT) the generic-a full addition of the capture scan
+    if g1.a_is_zero:
+        ops1, ops2 = point_add_u32_ops(L), point_add_u32_ops(L, fp2=d2 == 2)
+    else:
+        ops1, ops2 = point_add_general_u32_ops(g1), point_add_general_u32_ops(g2)
     extras["msm_g1_groups"] = [{"n_pad": npad_g, "lanes": len(lane_ids)} for npad_g, lane_ids in dpk.g1_group_info]
     extras["msm_g1_points_per_s"] = g1_points / phases["msm_g1_x4"]
     extras["msm_g2_points_per_s"] = n_g2 / phases["msm_g2"]
     extras["msm_g1_adds_total"] = g1_adds
     extras["msm_g1_adds_per_s"] = g1_adds / phases["msm_g1_x4"]
-    extras["msm_g1_sol_frac"] = (
-        extras["msm_g1_adds_per_s"] * point_add_u32_ops(L) / rate if rate else None
-    )
+    extras["msm_g1_sol_frac"] = extras["msm_g1_adds_per_s"] * ops1 / rate if rate else None
     extras["msm_g2_adds_per_s"] = g2_adds / phases["msm_g2"]
-    extras["msm_g2_sol_frac"] = (
-        extras["msm_g2_adds_per_s"] * point_add_u32_ops(L, fp2=not c.g2_over_base) / rate if rate else None
-    )
+    extras["msm_g2_sol_frac"] = extras["msm_g2_adds_per_s"] * ops2 / rate if rate else None
     fr_limbs = z_enc.shape[0]
-    bflies = 7 * ntt_butterflies(dpk.domain.size)
-    extras["ntt_butterflies_per_s"] = bflies / phases["witness_map"]
-    extras["ntt_sol_frac"] = extras["ntt_butterflies_per_s"] * mont_mul_u32_ops(fr_limbs) / rate if rate else None
+    if dpk.domain.radixes:
+        # a mixed-radix domain (MNT6-298's Fr): radix-2 butterflies do not
+        # count its odd stages' work, so neither figure is given
+        extras["ntt_butterflies_per_s"] = extras["ntt_sol_frac"] = None
+        extras["ntt_note"] = f"mixed-radix domain of {dpk.domain.size} (radixes {dpk.domain.radixes}): not counted"
+    else:
+        bflies = 7 * ntt_butterflies(dpk.domain.size)
+        extras["ntt_butterflies_per_s"] = bflies / phases["witness_map"]
+        extras["ntt_sol_frac"] = (
+            extras["ntt_butterflies_per_s"] * mont_mul_u32_ops(fr_limbs) / rate if rate else None
+        )
 
     # verify latency (the reference's 50 reps, benches/bench.rs:97-124)
     t0 = time.perf_counter()

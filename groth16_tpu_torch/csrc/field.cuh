@@ -14,8 +14,9 @@
 // carry addition (both compute value mod 2^(15 L) exactly).
 //
 // The constant table (fields/cuda_fp.py:kernel_consts) holds rows k*p for
-// k = 0..34, then b3 = 3b in Montgomery form (rows c0, c1), then one in
-// Montgomery form (R mod p).
+// k = 0..34, then in Montgomery form b3 = 3b (rows c0, c1), one (R mod p),
+// b3's c2 (Fq3), the curve coefficient a (rows c0, c1, c2; the generic-a
+// law) and the tower's nonresidue.
 
 #pragma once
 
@@ -33,9 +34,13 @@ struct Consts {
   uint32_t n0;  // -p^-1 mod 2^15
   __device__ __forceinline__ uint32_t kp(int k, int j) const { return __ldg(c + k * L + j); }
   __device__ __forceinline__ uint32_t b3(int comp, int j) const {
-    return __ldg(c + (KP_ROWS + comp) * L + j);
+    return __ldg(c + (comp < 2 ? KP_ROWS + comp : KP_ROWS + 3) * L + j);
   }
   __device__ __forceinline__ uint32_t one(int j) const { return __ldg(c + (KP_ROWS + 2) * L + j); }
+  __device__ __forceinline__ uint32_t a(int comp, int j) const {
+    return __ldg(c + (KP_ROWS + 4 + comp) * L + j);
+  }
+  __device__ __forceinline__ uint32_t nr(int j) const { return __ldg(c + (KP_ROWS + 7) * L + j); }
 };
 
 // fp.fold: lazy -> semi; the top digit's high part is dropped (callers keep
@@ -264,7 +269,9 @@ __device__ __forceinline__ Fe<L, D> fb3(const Consts<L>& k) {
 // has one such M, whatever word size builds it, so T and its exact digits
 // are those of the 15-bit CIOS (tests/test_torch_fp.py holds a model of
 // these steps against the plain version).  Values below 8p must fit in W
-// words: W = 9 at L = 18; at L = 26, 12 words hold 8p for p < 2^381, and
+// words: W = 9 at L = 18, 10 at L = 21 (MNT's 298-bit p: 8p < 2^301, and
+// the 27-bit last step past 9 full ones); at L = 26, 12 words hold 8p for
+// p < 2^381, and
 // at L = 52 (BW6-761's Fq), 24 words hold 8p for p < 2^765 (BW6-761's p
 // has 761 bits), so W = FULL there and the last step takes PART = 12
 // bits; the 25 words of the general rule would add a multiply row and a

@@ -6,9 +6,10 @@
 // fields/cuda_fp.py:mont_mul_plain.
 //
 // Bound on an H100: memory at L = 18 and 26.  One product moves 12 L bytes
-// (two inputs, one output: 216 at L = 18, 312 at L = 26, 624 at L = 52,
-// BW6-761's Fq) and, on the word engine (field.cuh: mont_mul_words), needs
-// about 4 W^2 + 2 W FULL 32-bit multiplies (W = 9, 12 or 24 words): ~2-4
+// (two inputs, one output: 216 at L = 18, 252 at L = 21, MNT's 298-bit
+// fields, 312 at L = 26, 624 at L = 52, BW6-761's Fq) and, on the word
+// engine (field.cuh: mont_mul_words), needs about 4 W^2 + 2 W FULL 32-bit
+// multiplies (W = 9, 10, 12 or 24 words): ~2-4
 // per byte from L = 18 to L = 52 against the card's ~5 (64
 // per SM per clock on 132 SMs against 3.35 TB/s).  The TPU's 15-bit
 // digits took ~8 L^2 instructions (a multiply, a mask, a shift and two
@@ -124,6 +125,10 @@ extern "C" int g16_mont_mul(int L, const void* a, unsigned ha, const void* b, un
       for (int j = 0; j < g16::Words<18>::W; j++) k.p[j] = words[j];
       k.n0 = words[g16::Words<18>::W];
       return launch_vec<18>(vec, a, ha, b, hb, out, n, k, s);
+    case 21:  // MNT4-298's and MNT6-298's Fq and Fr: 10 words, a 27-bit last step
+      for (int j = 0; j < g16::Words<21>::W; j++) k.p[j] = words[j];
+      k.n0 = words[g16::Words<21>::W];
+      return launch_vec<21>(vec, a, ha, b, hb, out, n, k, s);
     case 26:
       for (int j = 0; j < g16::Words<26>::W; j++) k.p[j] = words[j];
       k.n0 = words[g16::Words<26>::W];

@@ -18,7 +18,7 @@ import torch
 from groth16_tpu_torch.curves.params import CurveParams
 from groth16_tpu_torch.curves.point import CurveDevice, Point
 from groth16_tpu_torch.fields import fp
-from groth16_tpu_torch.fields.ops import Fp2Ops, FpOps
+from groth16_tpu_torch.fields.ops import Fp2Ops, Fp3Ops, FpOps
 from groth16_tpu_torch.fields.spec import FpSpec, decode, encode, make_spec
 
 
@@ -36,8 +36,13 @@ def g2_ops(c: CurveParams) -> CurveDevice:
     if c.g2_over_base:
         # bw6-family: G2 over Fq itself — the same Fp point kernels as G1
         return CurveDevice(FpOps(spec), b3=3 * c.b2 % c.p)
-    if c.g2_field_degree != 2:
-        raise NotImplementedError("Fq3 coordinates (MNT6) are not ported yet")
+    if c.g2_field_degree == 3:
+        # MNT6: G2 over Fq3 = Fq[v]/(v^3 - nr), a = (0, 0, a)
+        return CurveDevice(
+            Fp3Ops(spec, c.fp2_nonresidue),
+            b3=tuple(3 * x % c.p for x in c.b2),
+            a=getattr(c, "a2", (0, 0, 0)),
+        )
     b2_0, b2_1 = c.b2
     return CurveDevice(
         Fp2Ops(spec, c.fp2_nonresidue),
@@ -64,7 +69,8 @@ def g1_to_device(c: CurveParams, pts: Sequence[Optional[Tuple[int, int]]], devic
 
 
 def g2_to_device(c: CurveParams, pts, device="cuda") -> Point:
-    """Affine G2 points (Fq2 tuples) -> projective device batch [L, 2, N]."""
+    """Affine G2 points (tower tuples) -> projective device batch [L, d, N]
+    for the extension degree d (2; 3 for MNT6)."""
     if c.g2_over_base:
         return g1_to_device(c, pts, device)
     spec = make_spec(c.p, name=f"{c.name}.Fq")
@@ -115,12 +121,13 @@ def g2_from_device(c: CurveParams, g: CurveDevice, pt: Point):
     single = pt[2].dim() == g.k.coord_ndim
     if single:
         pt = tuple(a[..., None] for a in pt)
-    x, y, inf = _affine_std(g, pt)  # [L, 2, *batch]
+    x, y, inf = _affine_std(g, pt)  # [L, d, *batch]
+    d = g.k.tower_deg
 
-    def dec(a):  # -> per-point (c0, c1) tuples
-        a = a.reshape(a.shape[0], 2, -1)
+    def dec(a):  # -> per-point coefficient tuples
+        a = a.reshape(a.shape[0], d, -1)
         v = decode(np.moveaxis(a, 1, 2), g.k.spec, mont=False)
-        return list(zip(v[0::2], v[1::2]))
+        return list(zip(*(v[i::d] for i in range(d))))
 
     out = [None if i else (xv, yv) for xv, yv, i in zip(dec(x), dec(y), inf.reshape(-1))]
     return out[0] if single else out

@@ -15,13 +15,22 @@ Counterpart of `groth16_tpu/curves/pallas_point.py`:
                 JAX package's `fori_loop` of `CurveDevice.add` in
                 `scalar_mul_bits`, groth16_tpu/curves/point.py:367)
 
+The full addition, Horner and the scalar multiplication also take the
+curve coefficient a: where a != 0 (MNT4-298, MNT6-298) their library is
+built with the generic-a law (RCB algorithm 1, the JAX package's
+`CurveDevice._add_general`, groth16_tpu/curves/point.py:200, which has no
+Pallas kernel), over Fq, Fq2 (MNT4's nonresidue 17) or Fq3 (MNT6's G2,
+`deg` 3).  The mixed additions and the scans exist for a = 0 only, as in
+the JAX package.
+
 One CUDA kernel body per formula (csrc/point_add.cu: rcb_add<F>,
 rcb_add_mixed<F>, and K6's rcb_add_mixed_w) templated on the coordinate
 field.  The full addition
 (K4/K5), the G2 mixed addition (K7), the Horner chain and the scalar
 multiplication run on a group
-of lanes per point (6 for G1, 24 for G2), each of the formula's three
-product stages one product a lane: most launches of a prove carry a few
+of lanes per point (6 for G1, 24 for G2 over Fq2, 27 over Fq3), each of
+the formula's product stages (three; four for the generic-a law) one
+product a lane (two over Fq3): most launches of a prove carry a few
 points, where one addition's latency is the launch's time.  The G1 mixed
 addition (K6), whose launches (the capture scan's steps) carry thousands
 of points, runs one thread per point with its coordinates packed into
@@ -57,7 +66,7 @@ from groth16_tpu_torch.fields.cuda_fp import (
     kernel_consts,
     word_consts,
 )
-from groth16_tpu_torch.fields.ops import Fp2Ops, FpOps
+from groth16_tpu_torch.fields.ops import Fp2Ops, Fp3Ops, FpOps
 from groth16_tpu_torch.fields.spec import FpSpec
 
 # launches per kernel, counted where the kernel is launched and nowhere
@@ -68,6 +77,11 @@ LAUNCHES = {
 }
 # calls of the plain versions on CUDA tensors (the main path makes none)
 PLAIN_CALLS = dict.fromkeys(LAUNCHES, 0)
+# the launches of LAUNCHES that ran the generic-a law (a != 0), by kernel
+# and by the coordinate field's degree
+GENERAL_A_LAUNCHES = {
+    f"{name}_d{d}": 0 for name in ("add", "horner", "scalar_mul") for d in (1, 2, 3)
+}
 # the additions' launches by points a launch, and the most points of one
 # launch
 SIZE_CLASSES = ("1-4", "5-4096", ">4096")
@@ -137,14 +151,27 @@ def mixed_word_consts(spec: FpSpec, b3_val: int):
 
 
 @functools.lru_cache(maxsize=None)
-def _plain_ops(spec: FpSpec, nr):
-    return FpOps(spec, plain=True) if nr is None else Fp2Ops(spec, nr, plain=True)
+def _plain_ops(spec: FpSpec, nr, deg: int = 2):
+    """Field ops on K1's plain version: Fq (nr None), Fq2 or Fq3 (deg)."""
+    if nr is None:
+        return FpOps(spec, plain=True)
+    return (Fp2Ops if deg == 2 else Fp3Ops)(spec, nr, plain=True)
 
 
-def _lib(n_limbs: int, deg: int, mixed: bool, nr: int):
+def plain_ops(k):
+    """The plain twin of field ops k: the same field, its products on K1's
+    plain version on any device."""
+    return _plain_ops(k.spec, getattr(k, "nr_int", None), k.tower_deg)
+
+
+def a_is_zero(a_val) -> bool:
+    return not any(a_val) if isinstance(a_val, tuple) else a_val == 0
+
+
+def _lib(n_limbs: int, deg: int, mixed: bool, nr: int, general: bool = False):
     from groth16_tpu_torch.utils.cuda_build import library, point_add_variant
 
-    lib = library(point_add_variant(n_limbs, deg, mixed, nr))
+    lib = library(point_add_variant(n_limbs, deg, mixed, nr, general))
     if not getattr(lib, "_g16_typed", False):
         P = ctypes.c_void_p
         tail = [ctypes.c_longlong, P, ctypes.c_uint, P]
@@ -180,29 +207,44 @@ def _device(name, tensors) -> torch.device:
     return devs.pop()
 
 
-def _check_kernel(name, spec, nr):
-    """(L, D) of a kernel call; raises for a field no kernel is built for."""
+def _check_kernel(name, spec, nr, deg=2, general=False):
+    """(L, D) of a kernel call; raises for a field no kernel is built for:
+    the a = 0 law over Fq and over Fq2 with |nr| <= 16, the generic-a law
+    over Fq, Fq2 and Fq3 (nr > 0 up to 16 there)."""
     L = spec.n_limbs
-    D = 1 if nr is None else 2
+    D = 1 if nr is None else deg
     if L not in KERNEL_LIMBS:
         raise ValueError(f"{name}: no kernel for L = {L} (have {KERNEL_LIMBS})")
-    if D == 2 and not 1 <= abs(nr) <= 16:
+    if D == 2 and not (nr if general else 1 <= abs(nr) <= 16):
         raise ValueError(f"{name}: no kernel for Fq2 nonresidue {nr}")
+    if D == 3 and not (general and 1 <= nr <= 16):
+        raise ValueError(f"{name}: no kernel for Fq3 nonresidue {nr} (a = 0: none)")
     return L, D
 
 
-def _launch(name, mixed, spec, nr, b3_val, p1, p2):
+def _count_general(kind, D, general):
+    if general:
+        GENERAL_A_LAUNCHES[f"{kind}_d{D}"] += 1
+
+
+def _consts(spec, nr, b3_val, a_val, dev):
+    return kernel_consts(spec, b3_val, dev, a_val, nr or 0)
+
+
+def _launch(name, mixed, spec, nr, deg, b3_val, a_val, p1, p2):
     """Launch one point-add kernel on CUDA coordinates; nr is None for
-    G1 (Fq coordinates), the Fq2 nonresidue for G2."""
-    L, D = _check_kernel(name, spec, nr)
-    lead = (L,) if D == 1 else (L, 2)
+    G1 (Fq coordinates), the tower's nonresidue for G2 over Fq2 or Fq3
+    (deg)."""
+    general = not a_is_zero(a_val)
+    L, D = _check_kernel(name, spec, nr, deg, general)
+    lead = (L,) if D == 1 else (L, D)
     n = max(x.shape[-1] for x in p1 + p2)
     ins = [check_operand(x, lead, n, f"{name} input {i}") for i, x in enumerate(p1 + p2)]
     dev = ins[0].device
     outs = [torch.empty(lead + (n,), dtype=torch.int32, device=dev) for _ in range(3)]
     if n == 0:
         return tuple(outs)
-    lib = _lib(L, D, mixed, 0 if nr is None else nr)
+    lib = _lib(L, D, mixed, 0 if nr is None else nr, general)
     ptrs = [x.data_ptr() for x in ins] + [o.data_ptr() for o in outs]
     stream = torch.cuda.current_stream(dev).cuda_stream
     if mixed and D == 1:  # K6
@@ -210,54 +252,59 @@ def _launch(name, mixed, spec, nr, b3_val, p1, p2):
         rc = lib.g16_point_add_mixed_g1(form, *ptrs, n, mixed_word_consts(spec, b3_val), stream)
     else:  # K7, or K4/K5: a lane group a point
         fn = lib.g16_point_add_mixed_group if mixed else lib.g16_point_add_group
-        rc = fn(*ptrs, n, kernel_consts(spec, b3_val, dev).data_ptr(), spec.n0inv, stream)
+        rc = fn(*ptrs, n, _consts(spec, nr, b3_val, a_val, dev).data_ptr(), spec.n0inv, stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
     LAUNCHES[name] += 1
+    _count_general("add", D, general)
     LAUNCH_SIZES[name][size_class(n)] += 1
     LARGEST_LAUNCH[name] = max(LARGEST_LAUNCH[name], n)
     return tuple(outs)
 
 
-def _dispatch(name, mixed, spec, nr, b3_val, p1, p2):
+def _dispatch(name, mixed, spec, nr, deg, b3_val, a_val, p1, p2):
     dev = _device(name, p1 + p2)
     if dev.type == "cpu":
-        plain = mixed_add_plain if mixed else add_plain
-        return plain(_plain_ops(spec, nr), b3_val, p1, p2)
+        if mixed:
+            return mixed_add_plain(_plain_ops(spec, nr, deg), b3_val, p1, p2)
+        return add_plain(_plain_ops(spec, nr, deg), b3_val, p1, p2, a_val)
     if dev.type != "cuda":
         raise ValueError(f"{name}: unsupported device {dev}")
-    return _launch(name, mixed, spec, nr, b3_val, p1, p2)
+    return _launch(name, mixed, spec, nr, deg, b3_val, a_val, p1, p2)
 
 
-def add_g1(spec: FpSpec, b3_val: int, p1, p2):
-    """K4: (X1,Y1,Z1) + (X2,Y2,Z2) on [L, N] coordinates."""
-    return _dispatch("add_g1", False, spec, None, b3_val, p1, p2)
+def add_g1(spec: FpSpec, b3_val: int, p1, p2, a_val=0):
+    """K4: (X1,Y1,Z1) + (X2,Y2,Z2) on [L, N] coordinates (the generic-a
+    law where a_val != 0)."""
+    return _dispatch("add_g1", False, spec, None, 1, b3_val, a_val, p1, p2)
 
 
-def add_g2(spec: FpSpec, nr: int, b3_val, p1, p2):
-    """K5: K4 over Fq2 on [L, 2, N] coordinates."""
-    return _dispatch("add_g2", False, spec, nr, b3_val, p1, p2)
+def add_g2(spec: FpSpec, nr: int, b3_val, p1, p2, a_val=0, deg: int = 2):
+    """K5: K4 over Fq2 (deg 2) on [L, 2, N] coordinates, or over Fq3 (deg
+    3, the generic-a law only) on [L, 3, N]."""
+    return _dispatch("add_g2", False, spec, nr, deg, b3_val, a_val, p1, p2)
 
 
 def add_mixed_g1(spec: FpSpec, b3_val: int, p1, xy2):
     """K6: (X1,Y1,Z1) + affine (X2,Y2) on [L, N]; affine infinity is
     (0, 0) and passes P1 through."""
-    return _dispatch("add_mixed_g1", True, spec, None, b3_val, p1, xy2)
+    return _dispatch("add_mixed_g1", True, spec, None, 1, b3_val, 0, p1, xy2)
 
 
 def add_mixed_g2(spec: FpSpec, nr: int, b3_val, p1, xy2):
     """K7: K6 over Fq2 on [L, 2, N] coordinates."""
-    return _dispatch("add_mixed_g2", True, spec, nr, b3_val, p1, xy2)
+    return _dispatch("add_mixed_g2", True, spec, nr, 2, b3_val, 0, p1, xy2)
 
 
-def _horner(name, spec, nr, b3_val, sums, c: int):
+def _horner(name, spec, nr, deg, b3_val, a_val, sums, c: int):
     dev = _device(name, sums)
     if dev.type == "cpu":
-        return horner_plain(_plain_ops(spec, nr), b3_val, sums, c)
+        return horner_plain(_plain_ops(spec, nr, deg), b3_val, sums, c, a_val)
     if dev.type != "cuda":
         raise ValueError(f"{name}: unsupported device {dev}")
-    L, D = _check_kernel(name, spec, nr)
-    lead = (L,) if D == 1 else (L, 2)
+    general = not a_is_zero(a_val)
+    L, D = _check_kernel(name, spec, nr, deg, general)
+    lead = (L,) if D == 1 else (L, D)
     lanes, W = sums[0].shape[-2:]
     for i, x in enumerate(sums):
         if x.dtype != torch.int32:
@@ -271,36 +318,38 @@ def _horner(name, spec, nr, b3_val, sums, c: int):
     outs = [torch.empty(lead + (lanes,), dtype=torch.int32, device=dev) for _ in range(3)]
     if lanes == 0:
         return tuple(outs)
-    consts = kernel_consts(spec, b3_val, dev)
-    rc = _lib(L, D, False, 0 if nr is None else nr).g16_horner(
+    consts = _consts(spec, nr, b3_val, a_val, dev)
+    rc = _lib(L, D, False, 0 if nr is None else nr, general).g16_horner(
         *[x.data_ptr() for x in sums], *[o.data_ptr() for o in outs], lanes, W, c,
         consts.data_ptr(), spec.n0inv, torch.cuda.current_stream(dev).cuda_stream,
     )
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
     LAUNCHES[name] += 1
+    _count_general("horner", D, general)
     return tuple(outs)
 
 
-def horner_g1(spec: FpSpec, b3_val: int, sums, c: int):
+def horner_g1(spec: FpSpec, b3_val: int, sums, c: int, a_val=0):
     """sum_w 2^(c w) sums[.., w] for each lane: window sums (X, Y, Z) each
     [L, lanes, W] (window 0 first) -> points [L, lanes], in one launch."""
-    return _horner("horner_g1", spec, None, b3_val, sums, c)
+    return _horner("horner_g1", spec, None, 1, b3_val, a_val, sums, c)
 
 
-def horner_g2(spec: FpSpec, nr: int, b3_val, sums, c: int):
-    """horner_g1 over Fq2: sums [L, 2, lanes, W] -> [L, 2, lanes]."""
-    return _horner("horner_g2", spec, nr, b3_val, sums, c)
+def horner_g2(spec: FpSpec, nr: int, b3_val, sums, c: int, a_val=0, deg: int = 2):
+    """horner_g1 over Fq2 (Fq3): sums [L, deg, lanes, W] -> [L, deg, lanes]."""
+    return _horner("horner_g2", spec, nr, deg, b3_val, a_val, sums, c)
 
 
-def _scalar_mul(name, spec, nr, b3_val, pt, bits):
+def _scalar_mul(name, spec, nr, deg, b3_val, a_val, pt, bits):
     dev = _device(name, list(pt) + [bits])
     if dev.type == "cpu":
-        return scalar_mul_plain(_plain_ops(spec, nr), b3_val, pt, bits)
+        return scalar_mul_plain(_plain_ops(spec, nr, deg), b3_val, pt, bits, a_val)
     if dev.type != "cuda":
         raise ValueError(f"{name}: unsupported device {dev}")
-    L, D = _check_kernel(name, spec, nr)
-    lead = (L,) if D == 1 else (L, 2)
+    general = not a_is_zero(a_val)
+    L, D = _check_kernel(name, spec, nr, deg, general)
+    lead = (L,) if D == 1 else (L, D)
     if bits.dim() != 2:
         raise ValueError(f"{name}: expected bits [lanes, nbits], got {tuple(bits.shape)}")
     lanes, nbits = bits.shape
@@ -312,44 +361,51 @@ def _scalar_mul(name, spec, nr, b3_val, pt, bits):
     outs = [torch.empty(lead + (lanes,), dtype=torch.int32, device=dev) for _ in range(3)]
     if lanes == 0:
         return tuple(outs)
-    consts = kernel_consts(spec, b3_val, dev)
-    rc = _lib(L, D, False, 0 if nr is None else nr).g16_scalar_mul(
+    consts = _consts(spec, nr, b3_val, a_val, dev)
+    rc = _lib(L, D, False, 0 if nr is None else nr, general).g16_scalar_mul(
         *[x.data_ptr() for x in ins], bits.data_ptr(), *[o.data_ptr() for o in outs], lanes, nbits,
         consts.data_ptr(), spec.n0inv, torch.cuda.current_stream(dev).cuda_stream,
     )
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
     LAUNCHES[name] += 1
+    _count_general("scalar_mul", D, general)
     return tuple(outs)
 
 
-def scalar_mul_g1(spec: FpSpec, b3_val: int, pt, bits):
+def scalar_mul_g1(spec: FpSpec, b3_val: int, pt, bits, a_val=0):
     """bits[l] * P[l] for each lane: points (X, Y, Z) each [L, lanes],
     bits int32 [lanes, nbits] little-endian -> [L, lanes], in one launch."""
-    return _scalar_mul("scalar_mul_g1", spec, None, b3_val, pt, bits)
+    return _scalar_mul("scalar_mul_g1", spec, None, 1, b3_val, a_val, pt, bits)
 
 
-def scalar_mul_g2(spec: FpSpec, nr: int, b3_val, pt, bits):
-    """scalar_mul_g1 over Fq2: points [L, 2, lanes] -> [L, 2, lanes]."""
-    return _scalar_mul("scalar_mul_g2", spec, nr, b3_val, pt, bits)
+def scalar_mul_g2(spec: FpSpec, nr: int, b3_val, pt, bits, a_val=0, deg: int = 2):
+    """scalar_mul_g1 over Fq2 (Fq3): points [L, deg, lanes] -> [L, deg, lanes]."""
+    return _scalar_mul("scalar_mul_g2", spec, nr, deg, b3_val, a_val, pt, bits)
 
 
 # -- plain versions --------------------------------------------------------------
 
 
+def _group(k) -> str:
+    return "g1" if k.tower_deg == 1 else "g2"
+
+
 def _count_plain(k, mixed, x):
     if x.is_cuda:
-        base = "add_mixed_g" if mixed else "add_g"
-        PLAIN_CALLS[base + str(k.tower_deg)] += 1
+        PLAIN_CALLS[("add_mixed_" if mixed else "add_") + _group(k)] += 1
 
 
-def add_plain(k, b3_val, p1, p2):
+def add_plain(k, b3_val, p1, p2, a_val=0):
     """Plain version of K4/K5: the stacked RCB complete addition of
-    `groth16_tpu/curves/point.py:CurveDevice.add` (a = 0).
+    `groth16_tpu/curves/point.py:CurveDevice.add` (a = 0), or its generic-a
+    law `_add_general` where a_val != 0 (add_general_plain).
 
     Value ledger (multiples of p): pre-adds < 4p; M1 products <= 16p^2;
     t3/t4/t5 < 6p; t0t < 6p; M2 <= 6p^2; Z3s/t1m < 4p; M3 products
     <= 36p^2; X3/Y3/Z3 pre-reduce < 4p."""
+    if not a_is_zero(a_val):
+        return add_general_plain(k, b3_val, a_val, p1, p2)
     _count_plain(k, False, p1[0])
     X1, Y1, Z1 = p1
     X2, Y2, Z2 = p2
@@ -380,13 +436,58 @@ def add_plain(k, b3_val, p1, p2):
     return tuple(k.reduce2p_many([X3, Y3, Z3], bound_k=4))
 
 
-def horner_plain(k, b3_val, sums, c: int):
+def add_general_plain(k, b3_val, a_val, p1, p2):
+    """Plain version of the generic-a form of K4/K5: RCB algorithm 1 of
+    eprint 2015/1060 as `groth16_tpu/curves/point.py:CurveDevice.
+    _add_general` stacks it, 12 products, 3 by a and 2 by b3 in four
+    product rounds (6, 4, 1, 6).
+
+    Value ledger (multiples of p): xy/xz/yz < 6p; d < 4p; X3t/Z3t < 6p;
+    e < 8p; t2m < 4p; f < 4p; round-4 products <= 48 p^2 (< 64 p^2
+    budget); outputs < 4p pre-reduce."""
+    _count_plain(k, False, p1[0])
+    X1, Y1, Z1 = p1
+    X2, Y2, Z2 = p2
+    dev = X1.device
+    b3 = k.const(b3_val, device=dev)
+    a_c = k.const(a_val, device=dev)
+    t0, t1, t2, m3, m4, m5 = k.mul_many(
+        [
+            (X1, X2),
+            (Y1, Y2),
+            (Z1, Z2),
+            (X1 + Y1, X2 + Y2),
+            (Y1 + Z1, Y2 + Z2),
+            (X1 + Z1, X2 + Z2),
+        ]
+    )
+    xy, yz, xz = k.sub_many(
+        [(m3, t0 + t1), (m4, t1 + t2), (m5, t0 + t2)], k=4
+    )  # X1Y2+X2Y1, Y1Z2+Y2Z1, X1Z2+X2Z1; each < 6p
+    axz, b3z, az, b3xz = k.mul_many([(xz, a_c), (t2, b3), (t2, a_c), (xz, b3)])
+    d = axz + b3z  # a*xz + b3*Z1Z2, < 4p lazy
+    X3t = k.sub(t1, d, k=4)  # Y1Y2 - d, < 6p
+    Z3t = t1 + d  # Y1Y2 + d, < 6p lazy
+    e = t0 + t0 + t0 + az  # 3*X1X2 + a*Z1Z2, < 8p lazy
+    t2m = k.sub(t0, az, k=2)  # X1X2 - a*Z1Z2, < 4p
+    (at2m,) = k.mul_many([(t2m, a_c)])
+    f = b3xz + at2m  # b3*xz + a*(X1X2 - a*Z1Z2), < 4p lazy
+    y3a, ef, w0, xyx3, xye, yzz3 = k.mul_many(
+        [(X3t, Z3t), (e, f), (yz, f), (xy, X3t), (xy, e), (yz, Z3t)]
+    )
+    Y3 = y3a + ef  # < 4p lazy
+    X3 = k.sub_exact(xyx3, w0, k=2)  # < 4p
+    Z3 = yzz3 + xye  # < 4p lazy
+    return tuple(k.reduce2p_many([X3, Y3, Z3], bound_k=4))
+
+
+def horner_plain(k, b3_val, sums, c: int, a_val=0):
     """Plain version of the Horner kernel: the loop of msm/pippenger.py
     over the plain K4/K5, from res = (0 : 1 : 0): for each window from the
     top, c doublings add(res, res), then add(res, sums[.., w])."""
     X = sums[0]
     if X.is_cuda:
-        PLAIN_CALLS[f"horner_g{k.tower_deg}"] += 1
+        PLAIN_CALLS[f"horner_{_group(k)}"] += 1
     lanes, W = X.shape[-2:]
     res = (
         k.zero((lanes,), device=X.device),
@@ -395,18 +496,18 @@ def horner_plain(k, b3_val, sums, c: int):
     )
     for w in reversed(range(W)):
         for _ in range(c):
-            res = add_plain(k, b3_val, res, res)
-        res = add_plain(k, b3_val, res, tuple(x[..., w] for x in sums))
+            res = add_plain(k, b3_val, res, res, a_val)
+        res = add_plain(k, b3_val, res, tuple(x[..., w] for x in sums), a_val)
     return res
 
 
-def scalar_mul_plain(k, b3_val, pt, bits):
+def scalar_mul_plain(k, b3_val, pt, bits, a_val=0):
     """Plain version of the scalar-multiplication kernel: the select loop
     of `groth16_tpu/curves/point.py:CurveDevice.scalar_mul_bits` over the
     plain K4/K5, from acc = (0 : 1 : 0): for each bit i, acc = add(acc,
     base) where bits[.., i] is set, then base = add(base, base)."""
     if bits.is_cuda:
-        PLAIN_CALLS[f"scalar_mul_g{k.tower_deg}"] += 1
+        PLAIN_CALLS[f"scalar_mul_{_group(k)}"] += 1
     X = pt[0]
     lanes = X.shape[-1]
     acc = (
@@ -417,8 +518,8 @@ def scalar_mul_plain(k, b3_val, pt, bits):
     base = pt
     for i in range(bits.shape[-1]):
         take = (bits[..., i] & 1).bool()
-        acc = tuple(torch.where(take, s, a) for s, a in zip(add_plain(k, b3_val, acc, base), acc))
-        base = add_plain(k, b3_val, base, base)
+        acc = tuple(torch.where(take, s, a) for s, a in zip(add_plain(k, b3_val, acc, base, a_val), acc))
+        base = add_plain(k, b3_val, base, base, a_val)
     return acc
 
 

@@ -1,11 +1,12 @@
 """Complete projective point arithmetic on limb tensors (PyTorch).
 
-Port of `groth16_tpu/curves/point.py:CurveDevice` for a = 0 curves (the
-BN/BLS12 families).  One class serves G1 (coords = FpOps) and G2
-(coords = Fp2Ops).  Additions use the Renes-Costello-Batina complete law
-(eprint 2015/1060): one straight-line formula covers generic addition,
-doubling, inverses and infinity (0 : 1 : 0) for every point of the
-prime-order subgroup.
+Port of `groth16_tpu/curves/point.py:CurveDevice`.  One class serves G1
+(coords = FpOps) and G2 (coords = Fp2Ops, or Fp3Ops for MNT6-298).
+Additions use the Renes-Costello-Batina complete laws (eprint
+2015/1060): one straight-line formula covers generic addition, doubling,
+inverses and infinity (0 : 1 : 0) for every point of the prime-order
+subgroup; algorithm 7 for a = 0 (BN, BLS12, BW6), algorithm 1 for the
+MNT families' a != 0.
 
 Data model: a batch of points is (X, Y, Z) limb tensors with a shared
 batch shape; coordinate (limb/tower) axes LEAD and batch axes TRAIL;
@@ -19,8 +20,10 @@ The TPU size gates of the JAX package have no counterpart here: the
 kernels mask their own ragged edge.  `to_affine` inverts every Z of a
 batch with one Fermat inverse (fields/fp.py batch_inv, K1 products).
 `scalar_mul_bits` runs each lane's double-and-add in one launch of the
-scalar-multiplication kernel (its plain select loop on the CPU).  The
-generic-a formula waits for a later slice.
+scalar-multiplication kernel (its plain select loop on the CPU).  Where
+a != 0, `add`, `horner` and `scalar_mul_bits` run the generic-a form of
+the same kernels, and `add_affine` is `add` of the rebuilt projective
+point, as in the JAX package (which has no mixed generic-a formula).
 """
 
 from __future__ import annotations
@@ -39,14 +42,12 @@ Point = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]  # (X, Y, Z)
 
 class CurveDevice:
     def __init__(self, k, b3, a=0):
-        """k: FpOps | Fp2Ops; b3: 3*b curve constant (int or Fp2 tuple)."""
-        a_is_zero = a == 0 or (isinstance(a, tuple) and all(c == 0 for c in a))
-        if not a_is_zero:
-            raise NotImplementedError(
-                "the generic-a addition (MNT families) is not ported yet"
-            )
+        """k: FpOps | Fp2Ops | Fp3Ops; b3: 3*b curve constant (int or tower
+        tuple); a: curve coefficient (int or tower tuple; != 0 for MNT)."""
         self.k = k
         self.b3_val = b3
+        self.a_val = a
+        self.a_is_zero = cuda_point.a_is_zero(a)
 
     # -- constructors --------------------------------------------------------
 
@@ -108,14 +109,17 @@ class CurveDevice:
         return tuple(x.reshape(tuple(x.shape[:cd]) + shape) for x in out)
 
     def add(self, p1: Point, p2: Point) -> Point:
-        """Complete addition (RCB a = 0).  Inputs/outputs: coords < 2p
-        exact.  K4 (G1) / K5 (G2) on CUDA tensors."""
+        """Complete addition (RCB a = 0, or the generic-a law).
+        Inputs/outputs: coords < 2p exact.  K4 (G1) / K5 (G2) on CUDA
+        tensors."""
         k = self.k
         flat, shape = self._flat(list(p1) + list(p2))
         if k.tower_deg == 1:
-            out = cuda_point.add_g1(k.spec, self.b3_val, flat[:3], flat[3:])
+            out = cuda_point.add_g1(k.spec, self.b3_val, flat[:3], flat[3:], self.a_val)
         else:
-            out = cuda_point.add_g2(k.spec, k.nr_int, self.b3_val, flat[:3], flat[3:])
+            out = cuda_point.add_g2(
+                k.spec, k.nr_int, self.b3_val, flat[:3], flat[3:], self.a_val, k.tower_deg
+            )
         return self._unflat(out, shape)
 
     def horner(self, sums: Point, c: int) -> Point:
@@ -124,17 +128,22 @@ class CurveDevice:
         tensors (c doublings and one add a window, from the top), its
         plain loop of additions on CPU tensors."""
         sums = tuple(x.contiguous() for x in sums)
-        if self.k.tower_deg == 1:
-            return cuda_point.horner_g1(self.k.spec, self.b3_val, sums, c)
-        return cuda_point.horner_g2(self.k.spec, self.k.nr_int, self.b3_val, sums, c)
+        k = self.k
+        if k.tower_deg == 1:
+            return cuda_point.horner_g1(k.spec, self.b3_val, sums, c, self.a_val)
+        return cuda_point.horner_g2(k.spec, k.nr_int, self.b3_val, sums, c, self.a_val, k.tower_deg)
 
     def add_affine(self, p1: Point, xy2) -> Point:
         """p1 + affine (x2, y2) with infinity encoded (0, 0) — the MSM
         suffix-scan hot op.  K6 (G1) / K7 (G2) on CUDA tensors; on CPU
         tensors their plain version (the same 13-product mixed formula;
         equal mod p to the complete add of the reconstructed projective
-        point, representatives may differ within < 2p)."""
+        point, representatives may differ within < 2p).  Where a != 0:
+        `add` of the rebuilt projective point (the JAX package's path)."""
         k = self.k
+        if not self.a_is_zero:
+            x2, y2 = xy2
+            return self.add(p1, self.from_affine(x2, y2, k.is_zero(y2, bound_k=2)))
         flat, shape = self._flat(list(p1) + list(xy2))
         if k.tower_deg == 1:
             out = cuda_point.add_mixed_g1(k.spec, self.b3_val, flat[:3], flat[3:])
@@ -155,9 +164,11 @@ class CurveDevice:
         n = flat[0].shape[-1]
         bits = bits.reshape(n, bits.shape[-1]).to(torch.int32).contiguous()
         if k.tower_deg == 1:
-            out = cuda_point.scalar_mul_g1(k.spec, self.b3_val, flat, bits)
+            out = cuda_point.scalar_mul_g1(k.spec, self.b3_val, flat, bits, self.a_val)
         else:
-            out = cuda_point.scalar_mul_g2(k.spec, k.nr_int, self.b3_val, flat, bits)
+            out = cuda_point.scalar_mul_g2(
+                k.spec, k.nr_int, self.b3_val, flat, bits, self.a_val, k.tower_deg
+            )
         return self._unflat(out, shape)
 
     # -- conversions -------------------------------------------------------------

@@ -32,34 +32,40 @@ PLAIN_CALLS = {"mont_mul": 0}
 
 # digit counts with a kernel: csrc/mont_mul.cu instantiates these, and the
 # point-add libraries (one per L, curves/cuda_point.py) are built for them:
-# 18 (bn254), 26 (BLS12's Fq, BW6-761's Fr) and 52 (BW6-761's Fq)
-KERNEL_LIMBS = (18, 26, 52)
+# 18 (bn254), 21 (MNT4-298's and MNT6-298's Fq and Fr), 26 (BLS12's Fq,
+# BW6-761's Fr) and 52 (BW6-761's Fq)
+KERNEL_LIMBS = (18, 21, 26, 52)
 KP_ROWS = 35  # rows k*p, k = 0..34, of the constant table (csrc/field.cuh)
 
 
+def _tower(v, d: int = 3) -> tuple:
+    """An int or a tower tuple -> d components (zeros appended)."""
+    v = (0 if v is None else v,) if not isinstance(v, tuple) else v
+    return tuple(v) + (0,) * (d - len(v))
+
+
 @functools.lru_cache(maxsize=None)
-def kernel_consts(spec: FpSpec, b3_val, device: torch.device) -> torch.Tensor:
+def kernel_consts(spec: FpSpec, b3_val, device: torch.device, a_val=0, nr=0) -> torch.Tensor:
     """Constant table read by every kernel (layout: csrc/field.cuh):
-    rows k*p for k = 0..34 (exact digits), then b3 in Montgomery form as
-    two rows (c0, c1; G1 and K1 leave them zero), then one in Montgomery
-    form (R mod p)."""
+    rows k*p for k = 0..34 (exact digits), then, in Montgomery form, b3's
+    components c0, c1 (G1 and K1 leave them zero), one (R mod p), b3's
+    c2 (Fq3), the curve coefficient a as three rows (the generic-a law;
+    zero where a = 0) and the tower's nonresidue nr (the Fq2 product of
+    the generic-a law for |nr| > 16)."""
     L = spec.n_limbs
     rows = [int_to_limbs(k * spec.modulus, L) for k in range(KP_ROWS)]
-    if b3_val is None:
-        b3 = (0, 0)
-    elif isinstance(b3_val, tuple):
-        b3 = b3_val
-    else:
-        b3 = (b3_val, 0)
-    rows += [int_to_limbs(spec.to_mont_int(v % spec.modulus), L) for v in b3 + (1,)]
+    b3 = _tower(b3_val)
+    vals = b3[:2] + (1, b3[2]) + _tower(a_val) + (nr,)
+    rows += [int_to_limbs(spec.to_mont_int(v % spec.modulus), L) for v in vals]
     return torch.tensor(rows, dtype=torch.int32).reshape(-1).to(device)
 
 
 # 32-bit words an operand below 8p takes at each L with a kernel
 # (csrc/field.cuh: Words<L>::W)
-KERNEL_WORDS = {18: 9, 26: 12, 52: 24}
+KERNEL_WORDS = {18: 9, 21: 10, 26: 12, 52: 24}
 # K1's launches by elements a launch, those that read an operand with a
-# period h < n, and those at each L ("L52": BW6-761's Fq)
+# period h < n, and those at each L ("L21": MNT's Fq and Fr, "L52":
+# BW6-761's Fq)
 SIZE_CLASSES = ("1-4096", "4097-65536", ">65536")
 LAUNCH_SIZES = {
     "mont_mul": dict.fromkeys(SIZE_CLASSES + ("period",) + tuple(f"L{L}" for L in KERNEL_LIMBS), 0)
@@ -72,7 +78,7 @@ def size_class(n: int) -> str:
 
 
 # elements a thread K1 is built for at each L (csrc/mont_mul.cu)
-KERNEL_VECTORS = {18: (1, 2), 26: (1, 2), 52: (1,)}
+KERNEL_VECTORS = {18: (1, 2), 21: (1, 2), 26: (1, 2), 52: (1,)}
 
 
 def elements_per_thread(L: int, n: int) -> int:

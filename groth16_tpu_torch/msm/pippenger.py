@@ -15,15 +15,18 @@ Port of `groth16_tpu/msm/pippenger.py`.  Per c-bit window w:
   5. window_sum = reduce(G_1..G_{B-1}); Horner: res = 2^c * res + w_sum,
      every window of every lane in one launch (`CurveDevice.horner`).
 
-Step 3 runs one of two paths, chosen by `CONFIG.msm_fused_scan` as in
-the JAX package:
+Step 3 runs one of two paths, chosen by `fused_scan_ok` as in the JAX
+package: `CONFIG.msm_fused_scan` where the curve has a scan kernel (a = 0
+over Fq or Fq2; MNT's a != 0 and Fq3 take the capture path):
 
   fused (default)  one launch of the suffix-scan kernel K2/K3
                    (msm/cuda_scan.py) per window group writes every
                    prefix value; the sign rides in bit 31 of the rows;
                    the boundaries come from a digit histogram
                    (first_ge_histogram) and are gathered from the prefix;
-  capture          K Python steps of one C-wide mixed add (K6/K7) each,
+  capture          K Python steps of one C-wide mixed add (K6/K7; where
+                   a != 0 the generic-a full addition of the rebuilt
+                   projective point) each,
                    capturing the boundary values in flight at positions
                    from a batched searchsorted on the sorted keys
                    (msm/scans.py); negation rides the gather index into
@@ -60,6 +63,17 @@ CAPTURE_BUCKET_COST = 50
 # `msm_max_chunks_fused`): C sets the scan's column count (R*C threads of
 # K = npad/C steps each) and the width of the cross pass.
 FUSED_MAX_CHUNKS = 512
+
+
+def fused_scan_ok(g: CurveDevice) -> bool:
+    """Whether the MSMs of curve ops g take the fused scan (K2/K3):
+    `CONFIG.msm_fused_scan` and a = 0 with Fq or Fq2 coordinates, |nr| <=
+    16 (the JAX package's `_fused_scan_ok`, groth16_tpu/msm/pippenger.py:61);
+    MNT's a != 0 and Fq3 run the capture path."""
+    k = g.k
+    return CONFIG.msm_fused_scan and g.a_is_zero and (
+        k.tower_deg == 1 or (k.tower_deg == 2 and 1 <= abs(k.nr_int) <= 16)
+    )
 
 
 def signed_num_windows(scalar_bits: int, c: int) -> int:
@@ -160,10 +174,11 @@ class MsmPlan(NamedTuple):
     n_groups: int
 
 
-def msm_plan(n: int, lanes: int, scalar_bits: int, ce: int, window_bits=None) -> MsmPlan:
+def msm_plan(g: CurveDevice, n: int, lanes: int, scalar_bits: int, window_bits=None) -> MsmPlan:
     """Windows, padding, chunking and window groups for `lanes` MSMs of n
-    points whose coordinates hold ce digits each."""
-    fused = CONFIG.msm_fused_scan
+    points of curve ops g, on the scan path `fused_scan_ok(g)`."""
+    fused = fused_scan_ok(g)
+    ce = g.k.spec.n_limbs * g.k.tower_deg
     signed = CONFIG.msm_signed_digits
     bucket_cost = FUSED_BUCKET_COST if fused else CAPTURE_BUCKET_COST
     c = window_bits or CONFIG.msm_window_bits or choose_window_bits(
@@ -219,7 +234,7 @@ def msm_device_lanes(
     L = g.k.spec.n_limbs
     D = g.k.tower_deg
     ce = L * D
-    plan = msm_plan(n, lanes, scalar_bits, ce, window_bits)
+    plan = msm_plan(g, n, lanes, scalar_bits, window_bits)
     fused, c, B, npad, C, K, wg = plan.fused, plan.c, plan.B, plan.npad, plan.C, plan.K, plan.wg
     sc = scalars.movedim(1, 0)  # [Ls, lanes, n]
     if signed:

@@ -1,10 +1,12 @@
-"""Radix-2 (coset) NTT over the limb engine (PyTorch).
+"""Radix-2 and mixed-radix (coset) NTT over the limb engine (PyTorch).
 
-Port of `groth16_tpu/ntt/ntt.py:NttDomain` for radix-2 domains: the
-`ark-poly` Radix2EvaluationDomain behavior the witness map consumes —
-forward/inverse NTT on the subgroup H = <w> of size n, coset domains
-g*H via pre/post scaling, natural-order outputs [f(g*w^0), f(g*w^1),
-...] and 1/n normalization.
+Port of `groth16_tpu/ntt/ntt.py:NttDomain`: the `ark-poly`
+Radix2EvaluationDomain behavior the witness map consumes — forward/
+inverse NTT on the subgroup H = <w> of size n, coset domains g*H via
+pre/post scaling, natural-order outputs [f(g*w^0), f(g*w^1), ...] and 1/n
+normalization — and, where the field's 2-adicity is too small (MNT6-298's
+Fr: 17), the MixedRadixEvaluationDomain fallback to the smallest
+2^a 3^b 5^c 7^d size (`_ntt_core_mixed`).
 
 Each DIF stage views the trailing element axis as [blocks, m] and
 butterflies the contiguous halves: lower = u + v, upper = (u - v) * tw
@@ -12,12 +14,17 @@ with the stage's twiddles broadcast across blocks — one K1 multiply
 (fields/cuda_fp.py) plus plain tensor ops per stage; a gather applies
 the bit reversal at the end.  Twiddle and offset power tables are built
 on the device by log-doubling and cached per (field, base, n, device).
-The mixed-radix core (MNT6) waits for a later slice.
+The mixed-radix core peels the odd radixes first as generalised DIF
+stages (K1 products against columns of the root's power table), then runs
+the radix-2 core on the power-of-two tail with the blocks as a batch
+axis, and one gather restores natural order.  Like the JAX package's, it
+has no kernel of its own: its products are K1's.
 """
 
 from __future__ import annotations
 
 import functools
+import math
 
 import torch
 
@@ -25,6 +32,7 @@ from groth16_tpu_torch.config import resolve_device
 from groth16_tpu_torch.curves.params import FieldParams
 from groth16_tpu_torch.fields import fp
 from groth16_tpu_torch.fields.spec import FpSpec, encode, make_spec
+from groth16_tpu_torch.ref.domain import _element_of_order, _smooth_sizes
 
 
 def _enc(values, spec: FpSpec, device) -> torch.Tensor:
@@ -99,9 +107,84 @@ def _ntt_core(spec: FpSpec, a: torch.Tensor, tws) -> torch.Tensor:
     return a.index_select(-1, _bitrev_perm(n, a.device))
 
 
+def _odd_radixes(n: int):
+    """Odd prime radix sequence of n (largest first) and the power-of-two
+    tail M: n = prod(radixes) * M."""
+    radixes = []
+    m = n
+    for q in (7, 5, 3):
+        while m % q == 0:
+            radixes.append(q)
+            m //= q
+    assert m & (m - 1) == 0, f"non-smooth NTT size {n}"
+    return tuple(radixes), m
+
+
+@functools.lru_cache(maxsize=None)
+def _mixed_storage_perm(n: int, radixes, M: int, device: torch.device) -> torch.Tensor:
+    """Final gather composing the odd-stage DIF digit placement with the
+    natural-order radix-2 block transforms: out[k] = storage[perm[k]]
+    where k = r0 + q0*(r1 + q1*(... + k_sub)) lands at storage
+    sum_i r_i * (n / prod_{j<=i} q_j) + k_sub."""
+    rem = torch.arange(n, dtype=torch.int64)
+    base = torch.zeros(n, dtype=torch.int64)
+    div = n
+    for q in radixes:
+        base += (rem % q) * (div // q)
+        rem = rem // q
+        div //= q
+    return (base + rem).to(device)
+
+
+def _ntt_core_mixed(spec: FpSpec, a: torch.Tensor, root_powers: torch.Tensor, radixes, sub_tws) -> torch.Tensor:
+    """Mixed-radix DIF NTT along the trailing element axis; natural order
+    in and out (the JAX package's `_ntt_core_mixed`).  The odd prime
+    factors (7/5/3) are peeled first as generalised DIF stages over
+    contiguous slices — radix-q butterfly y_r = (sum_j W_q^{jr} u_j) *
+    w_m^{r t} with W_q's entries columns of the n-entry power table and the
+    stage twiddles strided slices of it — leaving n/M independent radix-2
+    transforms of the power-of-two tail M (_ntt_core, the blocks a batch
+    axis; sub_tws: its stage twiddles for root^(n/M)).
+
+    Ledger: stage inputs < 2p exact; y_r pre-twiddle < 2q p lazy (< R at
+    every L with a kernel); the twiddle product's output < 2p; r = 0
+    lanes are value-reduced back to < 2p."""
+    n = a.shape[-1]
+    lead = tuple(a.shape[:-1])
+    ones = (1,) * len(lead)
+    m = n
+    for q in radixes:
+        h = m // q
+        B = n // m
+        x = a.reshape(lead + (B, q, h))
+        us = [x[..., j, :] for j in range(q)]
+        ys = []
+        for r in range(q):
+            acc = us[0]
+            for j in range(1, q):
+                col = (n // q) * j * r % n
+                w = root_powers[:, col : col + 1].reshape((-1,) + ones + (1,))
+                acc = acc + fp.mont_mul(spec, us[j], w)
+            if r == 0:
+                y = fp.reduce_to_2p(spec, acc, bound_k=2 * q)
+            else:
+                tw = root_powers[:, :: (n // m) * r][:, :h]
+                y = fp.mont_mul(spec, acc, tw.reshape((-1,) + ones[1:] + (1, h)))
+            ys.append(y)
+        a = torch.stack(ys, dim=-2).reshape(lead + (n,))
+        m = h
+    M = m
+    a = _ntt_core(spec, a.reshape(lead + (n // M, M)), sub_tws).reshape(lead + (n,))
+    if not radixes:
+        return a
+    return a.index_select(-1, _mixed_storage_perm(n, radixes, M, a.device))
+
+
 class NttDomain:
-    """Radix-2 evaluation domain of size n over field `field`, with its
-    device tables on `device` (mirrors groth16_tpu.ntt.ntt.NttDomain)."""
+    """Evaluation domain of size n over field `field`, with its device
+    tables on `device`: radix-2 where the field's 2-adicity allows, else
+    the smallest 2^a 3^b 5^c 7^d smooth size (the MNT6 regime; mirrors
+    groth16_tpu.ntt.ntt.NttDomain and ref/domain.py's rounding)."""
 
     def __init__(self, field: FieldParams, num_coeffs: int, device="cuda"):
         n = 1
@@ -109,17 +192,23 @@ class NttDomain:
         while n < num_coeffs:
             n <<= 1
             log_n += 1
-        if log_n > field.two_adicity:
-            raise NotImplementedError(
-                "mixed-radix domains (low 2-adicity fields) are not ported yet"
-            )
         self.field = field
         self.device = resolve_device(device)
         self.spec = make_spec(field.modulus, name=field.name)
         p = field.modulus
-        self.size = n
-        self.log_size = log_n
-        self.group_gen = pow(field.two_adic_root_of_unity, 1 << (field.two_adicity - log_n), p)
+        if log_n <= field.two_adicity:
+            self.size = n
+            self.log_size = log_n
+            self.group_gen = pow(field.two_adic_root_of_unity, 1 << (field.two_adicity - log_n), p)
+            self.radixes = ()
+        else:
+            cands = [m for m in _smooth_sizes(p - 1, field.two_adicity) if m >= num_coeffs]
+            if not cands:
+                raise ValueError("PolynomialDegreeTooLarge")
+            self.size = cands[0]
+            self.log_size = self.size.bit_length() - 1  # informational only
+            self.group_gen = _element_of_order(p, self.size)
+            self.radixes, _ = _odd_radixes(self.size)
         self.group_gen_inv = pow(self.group_gen, p - 2, p)
         self.size_inv = pow(self.size, p - 2, p)
 
@@ -128,7 +217,14 @@ class NttDomain:
 
     def _core(self, a: torch.Tensor, fwd: bool) -> torch.Tensor:
         base = self.group_gen if fwd else self.group_gen_inv
-        return _ntt_core(self.spec, a, _stage_tws(self.spec, base, self.size, self.device))
+        if not self.radixes:
+            return _ntt_core(self.spec, a, _stage_tws(self.spec, base, self.size, self.device))
+        odd = math.prod(self.radixes)
+        p = self.field.modulus
+        sub_tws = _stage_tws(self.spec, pow(base, odd, p), self.size // odd, self.device)
+        return _ntt_core_mixed(
+            self.spec, a, powers(self.spec, base, self.size, self.device), self.radixes, sub_tws
+        )
 
     def fft(self, coeffs: torch.Tensor, offset: int = 1) -> torch.Tensor:
         """coefficients -> evaluations on offset*H.  coeffs: int32[L, n]

@@ -220,14 +220,14 @@ def decode_proof_arrays(curve: str, out) -> Proof:
     xs, ys = decode(ax, spec), decode(ay, spec)
     a_pt = None if ainf[0] else (xs[0], ys[0])
     c_pt = None if ainf[1] else (xs[1], ys[1])
-    # bx/by: [L, 2, 1] (Fp2 G2) or [L, 1] (G2 over Fq)
+    # bx/by: [L, d, 1] (G2 over Fq2 or Fq3) or [L, 1] (G2 over Fq)
     bx_v, by_v = decode(bx, spec), decode(by, spec)
     if binf[0]:
         b_pt = None
     elif c.g2_over_base:
         b_pt = (bx_v[0], by_v[0])
     else:
-        b_pt = ((bx_v[0], bx_v[1]), (by_v[0], by_v[1]))
+        b_pt = (tuple(bx_v), tuple(by_v))
     return Proof(curve=curve, a=a_pt, b=b_pt, c=c_pt)
 
 

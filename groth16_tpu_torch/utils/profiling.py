@@ -91,6 +91,42 @@ def point_add_word_ops(n_limbs: int, fp2: bool = False, mixed: bool = True) -> i
     return products * mont_mul_word_ops(n_limbs)
 
 
+# A product by a constant below 2^8 in magnitude (mod p) is a few shifted
+# additions, as the a = 0 count leaves b3 = 9 or 12 out: MNT's a (2, 11,
+# 34) and the tower nonresidues (5, 17) are such constants.
+SMALL_CONST = 1 << 8
+
+
+def const_products(c, p: int) -> int:
+    """Base-field products of one product of an Fq^deg element by the
+    constant c (an int for Fq, else its deg coordinates): deg for each
+    coordinate that is not small, so a monomial (MNT's twisted b3) costs
+    deg; the nonresidue's wrap of the coordinates is additions."""
+    coords = c if isinstance(c, tuple) else (c,)
+    return len(coords) * sum(1 for x in coords if SMALL_CONST <= x % p <= p - SMALL_CONST)
+
+
+def general_add_products(g) -> int:
+    """Base-field products that one generic-a addition of curve ops g
+    needs (RCB algorithm 1, MNT's a != 0; curves/cuda_point.add_general_plain):
+    its 12 field products, deg^2 base-field products each over Fq^deg as
+    in point_add_word_ops, and its 3 products by a and 2 by b3 at
+    const_products.  MNT: 14 (G1), 52 (MNT4's G2), 114 (MNT6's G2)."""
+    p, deg = g.k.spec.modulus, g.k.tower_deg
+    return 12 * deg * deg + 3 * const_products(g.a_val, p) + 2 * const_products(g.b3_val, p)
+
+
+def point_add_general_u32_ops(g) -> int:
+    """One generic-a addition on 15-bit digits (point_add_u32_ops' count)."""
+    return general_add_products(g) * mont_mul_u32_ops(g.k.spec.n_limbs)
+
+
+def point_add_general_word_ops(g) -> int:
+    """One generic-a addition on the word engine (point_add_word_ops'
+    count): its products, each mont_mul_word_ops."""
+    return general_add_products(g) * mont_mul_word_ops(g.k.spec.n_limbs)
+
+
 def msm_work_point_adds(n: int, scalar_bits: int, window_bits: int, signed: bool = True) -> int:
     """Point additions of one Pippenger MSM of n points (the JAX package's
     count): the suffix scan adds n a window, the bucket tail ~2 a bucket

@@ -9,9 +9,10 @@ kernel's plain version) against the JAX package's exact engines:
   accumulators computed by the exact engine, so no CPU MSM runs, against
   `groth16_tpu.protocol.prover.create_proof_with_reduction` for the same
   r and s (r = 0 and s = 0 included);
-- `prove_batch` of two proofs against the exact prover (the one test here
-  that runs CPU MSMs); both verify;
 - `ProofStream`'s order and depth with a stand-in prover.
+
+`prove_batch` of two proofs against the exact prover, the one test of
+this set that runs CPU MSMs, is in test_torch_late.py.
 
 Tolerance: equal affine points (exact integers)."""
 
@@ -22,9 +23,7 @@ import pytest
 import torch
 
 from groth16_tpu.curves.params import get_curve
-from groth16_tpu.protocol import prepare_verifying_key as jprepare
 from groth16_tpu.protocol import setup as jsetup
-from groth16_tpu.protocol import verify_proof as jverify
 from groth16_tpu.protocol.data_structures import Proof as JProof
 from groth16_tpu.protocol.prover import create_proof_with_reduction
 from groth16_tpu.qap.reduction import LibsnarkReduction
@@ -104,35 +103,6 @@ def test_device_assembly_matches_exact_prover(r, s, monkeypatch):
     want = create_proof_with_reduction(JSilly(a=3, b=5), jpk, r, s)
     assert (got.curve, got.a, got.b, got.c) == (want.curve, want.a, want.b, want.c)
     assert verify_proof(prepare_verifying_key(prover.pk.vk), got, [15])
-
-
-def test_prove_batch_matches_exact_prover():
-    """Two proofs of different assignments in one batch (one fetch for
-    both): each equals the exact prover's for its r and s and verifies
-    under both packages' verifiers, and fails with a wrong input."""
-    curve = "bn254"
-    c = get_curve(curve)
-    jpk, jvk, cs, _, _ = _silly(curve)
-    rng = JRng(0xBA7)
-    cases = [(3, 5), (7, 11)]
-    zs = []
-    for a, b in cases:
-        cs_i = ConstraintSystem(c.r, mode=SynthesisMode.PROVE)
-        MySillyCircuit(a=a, b=b)(cs_i)
-        zs.append(cs_i.full_assignment())
-    rs = [rng.field_element(c.r) for _ in cases]
-    ss = [rng.field_element(c.r) for _ in cases]
-    prover = TorchProver(proving_key_from_reference(jpk), cs.to_matrices(), device="cpu")
-    proofs = prover.prove_batch(zs, rs, ss)
-    pvk, jpvk = prepare_verifying_key(prover.pk.vk), jprepare(jvk)
-    for proof, (a, b), r, s in zip(proofs, cases, rs, ss):
-        want = create_proof_with_reduction(JSilly(a=a, b=b), jpk, r, s)
-        assert (proof.a, proof.b, proof.c) == (want.a, want.b, want.c)
-        assert verify_proof(pvk, proof, [a * b % c.r])
-        assert not verify_proof(pvk, proof, [(a * b + 1) % c.r])
-        assert jverify(jpvk, JProof(curve=curve, a=proof.a, b=proof.b, c=proof.c), [a * b % c.r])
-    with pytest.raises(ValueError):
-        prover.prove_batch(zs, rs[:1], ss)
 
 
 class _StandIn:

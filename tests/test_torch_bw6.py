@@ -6,7 +6,7 @@ digits for its 761-bit Fq, L = 26 for its 377-bit Fr).
   engine's steps at L = 52 (tests/test_torch_fp.py's model: 24 words, 24
   full steps and a 12-bit one) give the plain version's digits;
   `curve_variants` builds BW6-761's four L = 52 libraries over Fq and
-  none over Fq2.
+  none over Fq2 (and MNT6-298's K1 and generic-a full additions).
 - Points: G1 and G2 (both over Fq, each with its own b3) full and mixed
   additions give the exact engine's sums (P + P, P + (-P) and infinity
   lanes included), and K6's word steps (tests/test_torch_k6.py's
@@ -29,7 +29,6 @@ import random
 
 import jax
 import numpy as np
-import pytest
 import torch
 from test_torch_fp import _at_limit, _digits, _vals, _value, _words_model
 from test_torch_k6 import WordModel, _plus_p
@@ -97,8 +96,9 @@ def test_bw6_field_engine_and_libraries():
     assert curve_variants(tget_curve("bls12_377")) == [
         "mont_mul", "point_add_L26_d1_full_nr0", "point_add_L26_d1_mixed_nr0", "point_add_L26_d2_full_nrm5",
         "point_add_L26_d2_mixed_nrm5", "suffix_scan_L26_d1_nr0", "suffix_scan_L26_d2_nrm5"]
-    with pytest.raises(ValueError):
-        curve_variants(tget_curve("mnt6_298"))  # G2 over Fq3: no kernels
+    # a != 0 (MNT): K1 and the generic-a full additions, over Fq and G2's Fq3
+    assert curve_variants(tget_curve("mnt6_298")) == [
+        "mont_mul", "point_add_L21_d1_full_nr0_ga", "point_add_L21_d3_full_nr5_ga"]
 
 
 def test_bw6_point_additions_and_k6_words():

@@ -1,7 +1,9 @@
 """The CUDA kernels of the port against their plain PyTorch versions, on
 the card: K1 (mont_mul), K4-K7 (point additions), the Horner kernel,
 K2/K3 (the MSM suffix scans), V (the op-rate microbenchmark) and the
-scalar multiplication, then batch inversion and to_affine, a small prove
+scalar multiplication, the generic-a forms of the full addition, Horner
+and the scalar multiplication (MNT4-298, MNT6-298: over Fq, Fq2 and Fq3)
+and the MNT proves, then batch inversion and to_affine, a small prove
 through every kernel, on each MSM scan path, against the exact prover, a
 small device setup against the exact setup, and a small batch and device
 assembly against the exact prover.
@@ -41,7 +43,7 @@ def dev():
     # build every library this file loads up front, one nvcc each, all at
     # once (a library built at first use would build alone)
     names = {"ubench_ops"}
-    for curve in ("bn254", "bls12_381", "bls12_377", "bw6_761"):
+    for curve in ("bn254", "bls12_381", "bls12_377", "bw6_761", "mnt4_298", "mnt6_298"):
         c = get_curve(curve)
         names.update(cuda_build.curve_variants(c))
     cuda_build.build(sorted(names))
@@ -74,10 +76,11 @@ def _at_limit_digits(values, L):
     "n,periods", [(1, [1]), (3, [1]), (4097, [1, 17]), (3 << 14, [1, 3, 1 << 14]), ((1 << 16) + 3, [1])]
 )
 @pytest.mark.parametrize(
-    "curve,field", [("bn254", "p"), ("bn254", "r"), ("bls12_381", "p"), ("bls12_377", "p"), ("bw6_761", "p")]
+    "curve,field", [("bn254", "p"), ("bn254", "r"), ("bls12_381", "p"), ("bls12_377", "p"), ("bw6_761", "p"),
+                    ("mnt4_298", "p"), ("mnt6_298", "p")]
 )
 def test_mont_mul_kernel_matches_plain(dev, curve, field, n, periods, monkeypatch):
-    """K1 (32-bit words) at n elements, L = 18, 26 and 52, at one and two
+    """K1 (32-bit words) at n elements, L = 18, 21, 26 and 52, at one and two
     elements a thread (one at L = 52; an odd n runs one): lazy and
     at-limit (just below
     8p, digits near 2^27) inputs; full operands and [L, h] period
@@ -595,3 +598,98 @@ def test_bw6_bench_on_the_card_verifies_on_the_native_engine(dev):
     assert e["verify_engine"] == "native"
     assert line["value"] > 0 and e["int32_mad_per_s"] > 0
     assert 0 < e["msm_g1_sol_frac"] < 1 and 0 < e["msm_g2_sol_frac"] < 1 and 0 < e["ntt_sol_frac"] < 1
+
+
+@pytest.mark.parametrize("curve", ["mnt4_298", "mnt6_298"])
+@pytest.mark.parametrize("group", ["g1", "g2"])
+def test_generic_a_kernels_match_plain(dev, curve, group):
+    """The generic-a law (a != 0) on the card: the group kernel at 1, 3,
+    33 and 4,101 points with the special lanes (P + P, P + (-P), P + inf,
+    inf + P, inf + inf), Horner at c = 13 over 23 windows of 3 lanes and
+    the scalar multiplication of 3 lanes at 64 bits (one lane of zeros),
+    each digit-equal to its plain version and counted as a generic-a
+    launch over Fq, MNT4's Fq2 or MNT6's Fq3; the additions and the first
+    Horner lane also against the exact engine."""
+    cv = get_curve(curve)
+    g2 = group == "g2"
+    g = (codec.g2_ops if g2 else codec.g1_ops)(cv)
+    k = g.k
+    D = k.tower_deg
+    ops = cuda_point.plain_ops(k)
+    to_dev = codec.g2_to_device if g2 else codec.g1_to_device
+    dec = codec.g2_from_device if g2 else codec.g1_from_device
+    lhs, rhs, add = _batches(curve, g2, 4101, seed=21)
+    p1 = tuple(x.to(dev) for x in g.add(*(to_dev(cv, x, "cpu") for x in (lhs, rhs))))  # Z != 1
+    p2 = tuple(x.to(dev) for x in to_dev(cv, rhs, "cpu"))
+    name = "add_g2" if g2 else "add_g1"
+    for n in (1, 3, 33, 4101):
+        a, b = tuple(x[..., -n:].contiguous() for x in p1), tuple(x[..., -n:].contiguous() for x in p2)
+        before = cuda_point.GENERAL_A_LAUNCHES[f"add_d{D}"]
+        got = g.add(a, b)
+        torch.cuda.synchronize()
+        assert cuda_point.GENERAL_A_LAUNCHES[f"add_d{D}"] == before + 1
+        for x, y in zip(got, cuda_point.add_plain(ops, g.b3_val, a, b, g.a_val)):
+            assert torch.equal(x, y)
+    want = [add(add(x, y), y) for x, y in zip(lhs, rhs)]
+    assert dec(cv, g, got) == want
+    lanes, windows, c = 3, 23, 13
+    sums = tuple(x[..., : lanes * windows].reshape(x.shape[:-1] + (lanes, windows)).contiguous() for x in got)
+    before = cuda_point.GENERAL_A_LAUNCHES[f"horner_d{D}"]
+    h = g.horner(sums, c)
+    torch.cuda.synchronize()
+    assert cuda_point.GENERAL_A_LAUNCHES[f"horner_d{D}"] == before + 1
+    host = tuple(x.cpu() for x in sums)  # the plain chain on the CPU: hundreds of additions
+    for x, y in zip(h, cuda_point.horner_plain(ops, g.b3_val, host, c, g.a_val)):
+        assert torch.equal(x.cpu(), y)
+    acc = None
+    for w in reversed(range(windows)):
+        for _ in range(c):
+            acc = add(acc, acc)
+        acc = add(acc, want[w])
+    assert dec(cv, g, tuple(x[..., :1] for x in h)) == [acc]
+    bits = torch.from_numpy(np.random.default_rng(D).integers(0, 2, (3, 64), dtype=np.int32))
+    bits[1] = 0
+    pts = tuple(x[..., :3].contiguous() for x in p1)
+    before = cuda_point.GENERAL_A_LAUNCHES[f"scalar_mul_d{D}"]
+    sm = g.scalar_mul_bits(pts, bits.to(dev))
+    torch.cuda.synchronize()
+    assert cuda_point.GENERAL_A_LAUNCHES[f"scalar_mul_d{D}"] == before + 1
+    for x, y in zip(sm, cuda_point.scalar_mul_plain(ops, g.b3_val, tuple(x.cpu() for x in pts), bits, g.a_val)):
+        assert torch.equal(x.cpu(), y)
+
+
+@pytest.mark.parametrize("curve", ["mnt4_298", "mnt6_298"])
+def test_mnt_prove_on_the_card_matches_the_exact_prover(dev, curve):
+    """The 2^6 DummyCircuit of MNT4-298 and MNT6-298 proved by TorchProver
+    on cuda (K1 at L = 21 and the generic-a kernels; no scan and no mixed
+    addition launch) gives the exact prover's proof, on the host and on
+    the device assembly, and it verifies."""
+    from groth16_tpu_torch.protocol.generator import setup
+    from groth16_tpu_torch.protocol.prover import create_proof_with_reduction
+    from groth16_tpu_torch.protocol.prover_torch import TorchProver
+    from groth16_tpu_torch.protocol.verifier import prepare_verifying_key, verify_proof
+    from groth16_tpu_torch.r1cs.circuits import DummyCircuit
+    from groth16_tpu_torch.r1cs.system import ConstraintSystem, SynthesisMode
+    from groth16_tpu_torch.utils.rng import Rng
+
+    c = get_curve(curve)
+    ncon, nvar = (1 << 6) - 2, 1 << 5
+    rng = Rng(0x2B6)
+    pk, vk = setup(DummyCircuit(nvar, ncon), curve, rng)
+    r, s = rng.field_element(c.r), rng.field_element(c.r)
+    cs = ConstraintSystem(c.r, mode=SynthesisMode.PROVE)
+    DummyCircuit(nvar, ncon, a=3, b=5)(cs)
+    prover = TorchProver(pk, cs.to_matrices())
+    before = {**cuda_fp.LAUNCHES, **cuda_point.LAUNCHES, **cuda_scan.LAUNCHES}
+    l21 = cuda_fp.LAUNCH_SIZES["mont_mul"]["L21"]
+    got = [prover.prove(cs.full_assignment(), r, s), prover.prove(cs.full_assignment(), r, s, host_assembly=False)]
+    after = {**cuda_fp.LAUNCHES, **cuda_point.LAUNCHES, **cuda_scan.LAUNCHES}
+    ran = {k for k in after if after[k] > before[k]}
+    assert {"mont_mul", "add_g1", "add_g2", "horner_g1", "horner_g2", "scalar_mul_g1", "scalar_mul_g2"} <= ran
+    assert not ran & {"add_mixed_g1", "add_mixed_g2", "suffix_scan_g1", "suffix_scan_g2"}
+    assert cuda_fp.LAUNCH_SIZES["mont_mul"]["L21"] > l21
+    want = create_proof_with_reduction(DummyCircuit(nvar, ncon, a=3, b=5), pk, r, s)
+    pvk = prepare_verifying_key(vk)
+    for proof in got:
+        assert (proof.a, proof.b, proof.c) == (want.a, want.b, want.c)
+        assert verify_proof(pvk, proof, [15]) and not verify_proof(pvk, proof, [16])

@@ -209,7 +209,7 @@ def _words_model(digits, p, L, full=None):
     one partial step of the PART = 15 L - 32 FULL bits left, the result
     unpacked into 15-bit digits.  full=n instead runs n full steps and no
     partial one."""
-    W = {18: 9, 26: 12, 52: 24}[L]
+    W = {18: 9, 21: 10, 26: 12, 52: 24}[L]
     steps = 15 * L // 32 if full is None else full
     part = 15 * L - 32 * steps if full is None else 0
     n0 = -pow(p, -1, 1 << 32) % (1 << 32)

@@ -55,5 +55,9 @@ def test_scan_sees_the_package():
         ("gadgets", "pairing_var.py"),
         ("gadgets", "r1cs_std.py"),
         ("r1cs", "gadget_circuit.py"),
+        ("fields", "ops.py"),
+        ("ntt", "ntt.py"),
+        ("curves", "codec.py"),
+        ("curves", "cuda_point.py"),
     ):
         assert os.path.join("groth16_tpu_torch", *module) in names

@@ -190,6 +190,21 @@ def test_point_add_word_ops():
         assert profiling.point_add_word_ops(L) < profiling.point_add_u32_ops(L) // 2 + L
 
 
+def test_point_add_general_products():
+    """The generic-a bound counts the products MNT's addition needs: 12
+    field products of deg^2 base products, and 2 by b3 (large, a monomial
+    on the twists); the products by a (2, 11, 34) are additions."""
+    counts = []
+    for name in ("mnt4_298", "mnt6_298"):
+        c = get_curve(name)
+        for g in (codec.g1_ops(c), codec.g2_ops(c)):
+            counts.append(profiling.general_add_products(g))
+            w = profiling.point_add_general_word_ops(g)
+            assert w == counts[-1] * profiling.mont_mul_word_ops(21)
+    assert counts == [14, 12 * 4 + 2 * 2, 14, 12 * 9 + 2 * 3]
+    assert profiling.const_products(-5 % get_curve("mnt6_298").p, get_curve("mnt6_298").p) == 0
+
+
 # points a wave of K6's forms holds on an H100 (132 SMs, 128 threads a
 # block): 6 and 8 blocks an SM at L = 18, 4 and 6 at L = 26, and 2 of the
 # one form built at L = 52
