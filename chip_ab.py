@@ -22,12 +22,24 @@ package's public functions, so each checkout runs its own path):
                  bls12_381 key's, also at the points of the capture
                  proves' K6 launches);
   sass           instruction counts of the mixed additions' kernels;
+  general        the generic-a full addition (MNT: G1 over Fq at L = 21,
+                 MNT4-298's G2 over Fq2 with NR = 17, MNT6-298's over Fq3)
+                 of n points, and the affine step (add_affine: where a !=
+                 0 the capture step, or the rebuilt projective point's
+                 addition), at the MNT6-298 2^20 and MNT4-298 2^16 capture
+                 proves' step widths and at 2^16, queued;
+  horner         the Horner entry at every MSM shape (lanes, c, windows)
+                 of the bn254 2^16, bls12_381 2^20, bw6_761 2^16 and
+                 mnt6_298 2^20 proves, queued, with its time a chain
+                 addition;
   prove log_n    steady prove_encoded_host wall times of the bn254 2^16
-                 and bls12_381 2^20 DummyCircuits (chip_smoke.py's), in
-                 PROVE_ROUNDS rounds of turns;
-  profile log_n  one steady prove under torch.profiler: device time by
-                 kernel name, in turns (also on the capture scan, K6/K7,
-                 at both sizes).
+                 and bls12_381 2^20 DummyCircuits (chip_smoke.py's), and
+                 of the mnt6_298 2^20 bench circuit, in PROVE_ROUNDS rounds
+                 of turns;
+  profile log_n  one steady prove under torch.profiler (the card's events
+                 alone): device time by kernel name, the launches and the
+                 busy share, in turns (also on the capture scan, K6/K7, at
+                 both sizes; mnt6_298 2^20 takes the capture scan).
 
 One JSON line per measurement and worker, then the card's name and power
 limit.  Needs one CUDA card and nvcc; exits non-zero without them.
@@ -55,6 +67,15 @@ K6_N = (1, 4096, 28672, 1 << 16, 73728, 118784, 393216, 1 << 20)
 # compared
 SASS_LIBS = ("point_add_L18_d1_mixed_nr0", "point_add_L26_d1_mixed_nr0", "point_add_L18_d2_mixed_nrm1")
 PROVES, PROVE_ROUNDS = 4, 3
+# the generic-a additions' widths: the widest capture steps of the
+# mnt6_298 2^20 prove (G1 86,016, G2 28,672) and the mnt4_298 2^16 one
+# (G1 466,944, its widest launch before the capture step), and 2^16
+GENERAL_N = {("mnt4_298", "g1"): (1 << 16, 466944), ("mnt6_298", "g1"): (1 << 16, 86016),
+             ("mnt4_298", "g2"): (1 << 16,), ("mnt6_298", "g2"): (28672, 1 << 16)}
+# the keys set up for the Horner shapes and the mnt6_298 prove: (name,
+# curve, log_n, device setup, seed); bn254 and bls12_381 are the k1/prove
+# keys above
+EXTRA_KEYS = (("bw6_761_16", "bw6_761", 16, True, 0xB6), ("mnt6_298_20", "mnt6_298", 20, True, 0x6A))
 
 
 # -- worker ----------------------------------------------------------------------
@@ -93,14 +114,14 @@ class Worker:
         from groth16_tpu_torch.utils import cuda_build
 
         names = set()
-        for curve in ("bn254", "bls12_381"):
+        for curve in ("bn254", "bls12_381", "bw6_761", "mnt4_298", "mnt6_298"):
             c = get_curve(curve)
             names.update(cuda_build.curve_variants(c))
         t0 = time.time()
         cuda_build.build(sorted(names))
         return {"build_s": time.time() - t0}
 
-    def setup(self, curve, log_n, device_setup, seed):
+    def setup(self, curve, log_n, device_setup, seed, name=None):
         from groth16_tpu_torch.curves.params import get_curve
         from groth16_tpu_torch.protocol.generator import setup
         from groth16_tpu_torch.protocol.generator_torch import setup_device
@@ -119,7 +140,7 @@ class Worker:
         prover = TorchProver(pk, cs.to_matrices())
         z_enc = prover.encode_assignment(cs.full_assignment())
         self.torch.cuda.synchronize()
-        self.keys[log_n] = (c, prover, z_enc, Rng(seed + 1))
+        self.keys[name or log_n] = (c, prover, z_enc, Rng(seed + 1))
         return {"setup_s": time.time() - t0}
 
     def prove(self, log_n, k):
@@ -134,6 +155,9 @@ class Worker:
         return {"steady_prove_s": walls}
 
     def profile(self, log_n, fused=True):
+        """One steady prove under torch.profiler, the card's events alone
+        (the raw kineto events: a prove of ~10^5 launches takes minutes
+        through the profiler's event tree)."""
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
 
@@ -143,17 +167,76 @@ class Worker:
         r, s = rng.field_element(c.r), rng.field_element(c.r)
         with configure(msm_fused_scan=fused):
             prover.prove_encoded_host(z_enc, r, s)  # the path's first run
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t0 = time.time()
                 prover.prove_encoded_host(z_enc, r, s)
                 self.torch.cuda.synchronize()
+                wall = time.time() - t0
         by_name = {}
-        for e in prof.events():
-            if e.device_type == DeviceType.CUDA:
-                n, us = by_name.get(e.name, (0, 0.0))
-                by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
+        for e in prof.profiler.kineto_results.events():
+            if e.device_type() == DeviceType.CUDA:
+                n, us = by_name.get(e.name(), (0, 0.0))
+                by_name[e.name()] = (n + 1, us + e.duration_ns() / 1e3)
         top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:25]
-        return {"device_busy_ms": sum(us for _, us in by_name.values()) / 1e3,
+        busy = sum(us for _, us in by_name.values()) / 1e3
+        return {"device_busy_ms": busy, "profiled_wall_s": wall, "busy_share": busy / 1e3 / wall,
+                "launches": sum(n for n, _ in by_name.values()),
                 "top": [[k[:110], n, us / 1e3] for k, (n, us) in top]}
+
+    def _points(self, curve, group, n, seed=5):
+        """n points of the curve group (64 distinct ones repeated) on the
+        card: a projective batch (Z != 1) and the affine one it is added
+        to, with infinity, P + P and P + (-P) lanes."""
+        import random
+
+        from groth16_tpu_torch.curves import codec
+        from groth16_tpu_torch.curves.params import get_curve
+        from groth16_tpu_torch.ref.curve import RefGroups
+
+        c, ref = get_curve(curve), RefGroups(curve)
+        g = (codec.g2_ops if group == "g2" else codec.g1_ops)(c)
+        to = codec.g2_to_device if group == "g2" else codec.g1_to_device
+        mul, neg = getattr(ref, f"{group}_mul"), getattr(ref, f"{group}_neg")
+        r = random.Random(seed)
+        base = getattr(ref, f"{group}_sample")(3)
+        pts = [mul(base, r.randrange(1, c.r)) for _ in range(16)]
+        lhs = [pts[i % 16] for i in range(64)]
+        rhs = [pts[(5 * i + 3) % 16] for i in range(64)]
+        lhs[0], rhs[1], rhs[2], rhs[3] = None, None, lhs[2], neg(lhs[3])
+        p1 = g.add(to(c, lhs, self.dev), to(c, lhs, self.dev))
+        p2 = to(c, rhs, self.dev)
+        reps = -(-n // 64)
+        grow = lambda pt: tuple(x.repeat(*([1] * (x.dim() - 1)), reps)[..., :n].contiguous() for x in pt)  # noqa: E731
+        return g, grow(p1), grow(p2)
+
+    def general(self, curve, group, n):
+        """The generic-a full addition and the affine step of n points."""
+        g, p1, p2 = self._points(curve, group, n)
+        x2, y2, _ = g.to_affine(p2)
+        return {"add_ms": queued_ms(lambda: g.add(p1, p2)),
+                "affine_step_ms": queued_ms(lambda: g.add_affine(p1, (x2, y2)))}
+
+    def horner(self, key):
+        """The Horner entry at each MSM shape of key's prove: its G1 lane
+        groups and its G2 MSM, at msm_plan's c and windows."""
+        from groth16_tpu_torch.curves import codec
+        from groth16_tpu_torch.msm.pippenger import msm_plan
+
+        c, prover, _, _ = self.keys[key]
+        dpk = prover.dpk
+        shapes = [("g1", pts[2].shape[-2], pts[2].shape[-1]) for pts in dpk.g1_groups]
+        shapes.append(("g2", 1, dpk.b_g2_tail[2].shape[-1]))
+        out = []
+        for group, lanes, n in shapes:
+            g = codec.g2_ops(c) if group == "g2" else codec.g1_ops(c)
+            plan = msm_plan(g, n, lanes, c.r.bit_length())
+            W = plan.n_groups * plan.wg
+            _, p1, _ = self._points(c.name, group, lanes * W, seed=7)
+            sums = tuple(x.reshape(x.shape[:-1] + (lanes, W)).contiguous() for x in p1)
+            ms = queued_ms(lambda: g.horner(sums, plan.c))
+            out.append({"group": group, "lanes": lanes, "msm_points": n, "c": plan.c, "windows": W, "ms": ms,
+                        "ms_per_chain_addition": ms / (W * (plan.c + 1))})
+        return {"shapes": out}
 
     def k1(self, L, log_n, h):
         import numpy as np
@@ -313,6 +396,20 @@ def main():
             for who in ("other", "this", "this", "other"):
                 send(who, op="profile", log_n=20, fused=fused)
                 print(json.dumps({"profile20": who, "fused": fused, **recv(who)}), flush=True)
+        # the generic-a kernel, Horner at every prove's shapes, the mnt6_298
+        # 2^20 prove
+        for (curve, group), ns in GENERAL_N.items():
+            for n in ns:
+                turns(op="general", curve=curve, group=group, n=n)
+        for name, curve, log_n, device_setup, seed in EXTRA_KEYS:
+            both(op="setup", curve=curve, log_n=log_n, device_setup=device_setup, seed=seed, name=name)
+        for key in (16, 20) + tuple(name for name, *_ in EXTRA_KEYS):
+            turns(op="horner", key=key)
+        for _ in range(PROVE_ROUNDS):
+            turns(op="prove", log_n="mnt6_298_20", k=PROVES // 2)
+        for who in ("other", "this", "this", "other"):
+            send(who, op="profile", log_n="mnt6_298_20")
+            print(json.dumps({"profile_mnt6_20": who, **recv(who)}), flush=True)
         print(smi("name,power.limit"), flush=True)
     finally:
         for p in procs.values():

@@ -14,9 +14,11 @@ Phases, each printing one JSON line:
             at L = 21 over Fq, Fq2 and Fq3) and the op-rate microbenchmark
             from groth16_tpu_torch/csrc (one nvcc per library, all started
             together) with each one's seconds, registers, stack and spills
-            (K1's, K6's and K7's, and the generic-a ones, on lines of their
-            own), and beside them the verifier's native C++ engine (g++),
-            which must load for all six curves;
+            (K1's, K6's and K7's, Horner's (csrc/horner.cu, one library an
+            L) with the scalar multiplication's, and the generic-a group
+            kernel's (csrc/general_add.cu), on lines of their own), and
+            beside them the verifier's native C++ engine (g++), which must
+            load for all six curves;
   ubench    kernel V (the op-rate microbenchmark) for its seven operations at
             N = 2^20, R = 2048, each held against its plain version (at R = 16
             and at R = 2048) and timed, with the SASS each compiled to and the
@@ -28,7 +30,8 @@ Phases, each printing one JSON line:
             (65,534 constraints, 32,768 variables) from a fixed seed;
   kernels   K1 (mont_mul) and K4-K7 (point additions) at N = 2^16, the
             Horner kernel at every MSM shape of the prove (lanes, c,
-            windows), and
+            windows; its bound the products of c doublings and an addition
+            a window), and
             K2/K3 (the MSM suffix scans) at the shapes of the prove's largest
             G1 window group and of its G2 window group (rows, chunks and every
             step of each column) at the segment count S the card chooses,
@@ -159,11 +162,15 @@ Phases, each printing one JSON line:
             the native engine), 64 points of each query checked on the
             host, the generic-a group kernel over Fq and over G2's field at
             1-4,101 points and at 2^16 (with the infinity, P + P and
-            P + (-P) lanes), Horner at the prove's MSM shapes and the
-            scalar multiplication at the device assembly's, each timed
-            beside its bound; one counted prove (K1 at
-            L = 21 and the generic-a additions launch, no K2, K3, K6 or K7,
-            no plain version on the card), a device-assembled prove with
+            P + (-P) lanes), its capture step at the bench prove's widest
+            step and at 2^16 (rows at infinity, P + P, P + (-P), an
+            infinite accumulator, 12,288 capture targets), Horner at the
+            prove's MSM shapes and the scalar multiplication at the device
+            assembly's, each timed beside its bound; one counted prove (K1
+            at L = 21, the generic-a additions and capture steps launch,
+            no K2, K3, K6 or K7, no plain version on the card; its profile
+            gives the prove's launches and busy share), a
+            device-assembled prove with
             the same r and s (equal), both verified with 15 and rejected
             with 16, a steady prove under torch.profiler (the card's events
             only); mnt6_298's mixed-radix fft at the prove's size against a
@@ -368,18 +375,20 @@ def phase_card():
         for n, r in reports.items() if n == "mont_mul" or "_mixed_" in n
         for k, v in ptxas_summary(r["ptxas"]).items()
     }})
-    # the scalar multiplication beside Horner, its sibling on the group body
+    # the scalar multiplication and Horner (csrc/horner.cu, one library an L)
     emit({"phase": "card", "scalar_mul_horner_ptxas": {
         f"{n}: {kernel_name(k)}": v
-        for n, r in reports.items() if "_full_" in n
+        for n, r in reports.items() if "_full_" in n or n.startswith("horner_")
         for k, v in ptxas_summary(r["ptxas"]).items() if "scalar_mul" in k or "horner" in k
     }})
     # the L = 21 libraries of MNT4-298 and MNT6-298: K1's L = 21 instances
-    # are in the mont_mul line above; the generic-a group kernel, Horner and
-    # scalar multiplication over Fq, Fq2 (NR = 17) and Fq3 (NR = 5)
+    # are in the mont_mul line above; the generic-a group kernel
+    # (csrc/general_add.cu, its projective and capture-step forms) and the
+    # scalar multiplication's generic-a body over Fq, Fq2 (NR = 17) and
+    # Fq3 (NR = 5)
     emit({"phase": "card", "generic_a_ptxas": {
         f"{n}: {kernel_name(k)}": v
-        for n, r in reports.items() if n.endswith("_ga")
+        for n, r in reports.items() if n.endswith("_ga") or n.startswith("general_add_")
         for k, v in ptxas_summary(r["ptxas"]).items()
     }})
 
@@ -387,7 +396,7 @@ def phase_card():
 def kernel_name(mangled: str) -> str:
     """"point_add_group_kernel<18, 1, 0, 1, 0>" from a kernel's mangled
     name (template arguments in order; bools as 0 and 1)."""
-    m = re.search(r"((?:mont_mul|point_add_group|point_add_words|horner|scalar_mul)_kernel)I((?:L[a-z]n?\d+E)+)E", mangled)
+    m = re.search(r"((?:mont_mul|point_add_group|point_add_words|general_add|horner|scalar_mul)_kernel)I((?:L[a-z]n?\d+E)+)E", mangled)
     if not m:
         return mangled
     args = [a.replace("n", "-") for a in re.findall(r"L[a-z](n?\d+)E", m.group(2))]
@@ -817,8 +826,9 @@ def _point_kernels(dpk, c, n, device, mixed):
                "max_abs_err": max_abs_err(got, want), "ms": ms, "plain_ms": plain_ms,
                **point_bound(nbytes, live, L, deg == 2, is_mixed, g=g)}
         emit({"phase": "kernels", **row})
+        src = "point_add.cu" if g.a_is_zero else "general_add.cu"
         entries[name] = {
-            "name": name, "route": "cuda", "source": "groth16_tpu_torch/csrc/point_add.cu",
+            "name": name, "route": "cuda", "source": f"groth16_tpu_torch/csrc/{src}",
             "replaces": replaces, **_kline(row),
         }
     return entries
@@ -999,8 +1009,9 @@ def _horner_kernels(shapes, c, device):
     at the proves' shapes)."""
     import torch
 
-    from groth16_tpu_torch.curves import codec, cuda_point
+    from groth16_tpu_torch.curves import codec, cuda_point, formulas
     from groth16_tpu_torch.msm.pippenger import msm_plan
+    from groth16_tpu_torch.utils import profiling as pf
 
     sbits = c.r.bit_length()
     entries = {}
@@ -1024,18 +1035,86 @@ def _horner_kernels(shapes, c, device):
             err = max(err, max_abs_err(got, want))
             ms, _ = queued_ms(lambda: g.horner(sums, plan.c))
             adds = lanes * W * (plan.c + 1)
+            # the products the chain needs: c doublings and an addition a
+            # window, each its program's raw Fq products
+            dbl, add = formulas.programs(k.spec, D, getattr(k, "nr_int", 0), g.a_val, g.b3_val)
+            products = lanes * W * (plan.c * dbl.n_products + add.n_products)
+            nbytes = 3 * D * L * 4 * lanes * (W + 1)
+            digit = bound(nbytes, products * pf.mont_mul_u32_ops(L))
             calls.append({"lanes": lanes, "msm_points": n, "c": plan.c, "windows": W, "adds": adds,
-                          "ms": ms, "ms_per_chain_addition": ms / (W * (plan.c + 1)), "plain_ms": plain_ms,
-                          **point_bound(3 * D * L * 4 * lanes * (W + 1), adds, L, D == 2, g=g)})
+                          "products": products, "ms": ms, "ms_per_chain_addition": ms / (W * (plan.c + 1)),
+                          "plain_ms": plain_ms, **bound(nbytes, products * pf.mont_mul_word_ops(L)),
+                          "bound_15bit_ms": digit["bound_ms"], "bound_15bit_by": digit["bound_by"]})
         row = {"kernel": name, "curve": c.name, "tolerance": 0, "max_abs_err": err, "calls": calls,
                **{key: sum(x[key] for x in calls) for key in ("ms", "plain_ms", "bound_ms", "bound_published_ms")},
                "bound_by": calls[0]["bound_by"], "bound_published_by": calls[0]["bound_published_by"],
                "plain_on": "cpu" if all(x["lanes"] <= PLAIN_CPU_MAX_LANES for x in calls) else "cuda"}
         emit({"phase": "kernels", **row})
         entries[name] = {
-            "name": name, "route": "cuda", "source": "groth16_tpu_torch/csrc/point_add.cu",
+            "name": name, "route": "cuda", "source": "groth16_tpu_torch/csrc/horner.cu",
             "replaces": POINT_KERNELS[f"add_g{min(D, 2)}"][3], **_kline(row),
             "ms_per_chain_addition": [x["ms_per_chain_addition"] for x in calls],
+        }
+    return entries
+
+
+# capture targets of the capture-step checks: as many as one window
+# group's bucket boundaries at c = 13 (lanes x windows x 2^12)
+CAPTURE_TARGETS = 3 * 4096
+
+
+def _capture_step_kernels(dpk, c, device, widths):
+    """The generic-a group kernel's capture step (acc + an affine row, and
+    the captures of the step before) of curve c's G1 and G2 against its
+    plain version (capture_step_plain: from_affine, the generic-a law and
+    the select, on the card), digit for digit, at each of widths[name]
+    points (the widest capture step of the curve's prove, and 2^16), on
+    its key's points with the special lanes (rows at infinity, P + P,
+    P + (-P), an infinite accumulator) and CAPTURE_TARGETS targets a third
+    of which capture; each timed beside its bound."""
+    import numpy as np
+    import torch
+
+    from groth16_tpu_torch.curves import codec, cuda_point
+    from groth16_tpu_torch.fields.spec import make_spec
+
+    L = make_spec(c.p).n_limbs
+    rng = np.random.default_rng(0xCA)
+    entries = {}
+    for name, g in (("capture_step_g1", codec.g1_ops(c)), ("capture_step_g2", codec.g2_ops(c))):
+        D = g.k.tower_deg
+        plain_ops = cuda_point.plain_ops(g.k)
+        src_pts = _key_points(dpk, g)
+        calls, err = [], 0
+        for n in widths[name]:
+            _, _, acc, xy = _kernel_inputs(src_pts, g, n, device)
+            T = CAPTURE_TARGETS
+            jk = torch.from_numpy(rng.integers(0, 3, T, dtype=np.int32)).to(device)
+            src = torch.from_numpy(rng.integers(0, n, T, dtype=np.int32)).to(device)
+            cap0 = g.infinity((T,), device=device)
+            cap = tuple(x.clone() for x in cap0)
+            run = lambda: g.capture_step(acc, xy, cap, jk, src, 1)  # noqa: E731
+            got = run()
+            want, plain_ms = timed_once(lambda: cuda_point.capture_step_plain(
+                plain_ops, g.b3_val, g.a_val, acc, xy, cap0, jk, src, 1))
+            torch.cuda.synchronize()
+            flat = lambda pair: list(pair[0]) + list(pair[1])  # noqa: E731
+            if not all(torch.equal(x, y) for x, y in zip(flat(got), flat(want))):
+                raise AssertionError(f"{name} on {c.name} at n = {n}: kernel and plain version disagree")
+            err = max(err, max_abs_err(flat(got), flat(want)))
+            ms = queued_ms(run)[0]
+            taken = int((jk == 1).sum())
+            nbytes = ((3 + 2 + 3) * n + 2 * 3 * taken) * L * D * 4 + 2 * 4 * T
+            calls.append({"n": n, "targets": T, "captured": taken, "ms": ms, "plain_ms": plain_ms,
+                          **point_bound(nbytes, n, L, D == 2, g=g)})
+        row = {"kernel": name, "curve": c.name, "tolerance": 0, "max_abs_err": err, "calls": calls,
+               **{k: calls[0][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "bound_published_ms",
+                                           "bound_published_by")}, "at_n": calls[0]["n"], "card": card_line()}
+        emit({"phase": "kernels", **row})
+        entries[name] = {
+            "name": name, "route": "cuda", "source": "groth16_tpu_torch/csrc/general_add.cu",
+            "replaces": "groth16_tpu/msm/scans.py:192",
+            **_kline(row), "at_n": calls[0]["n"],
         }
     return entries
 
@@ -1304,7 +1383,7 @@ def _scan_kernels(dpk, c, rng, device, sweep=True):
 
 # the device name of a prove's kernel from csrc/ (the profiler's demangled
 # name: "void (anonymous namespace)::point_add_group_kernel<26, 1, 0>(...)")
-PORT_KERNEL = r"void \(anonymous namespace\)::((?:mont_mul|point_add_words|point_add_group|horner|scalar_mul|suffix_scan)_kernel<[^>]*>)"
+PORT_KERNEL = r"void \(anonymous namespace\)::((?:mont_mul|point_add_words|point_add_group|general_add|horner|scalar_mul|suffix_scan)_kernel<[^>]*>)"
 
 
 def profile_prove(prove) -> dict:
@@ -1342,7 +1421,8 @@ def profile_prove(prove) -> dict:
         "device_launches": sum(n for n, _ in by_name.values()),
         "top_device_time": [{"name": k[:90], "count": n, "ms": us / 1e3} for k, (n, us) in top],
         "port_kernels": ours,
-        "point_add_and_horner_ms": sum(v["ms"] for k, v in ours.items() if k.startswith(("point_add", "horner"))),
+        "point_add_and_horner_ms": sum(v["ms"] for k, v in ours.items()
+                                       if k.startswith(("point_add", "general_add", "horner"))),
     }
 
 
@@ -2096,7 +2176,7 @@ def phase_bw6(device):
 # no scan kernel and no mixed addition there, so neither may launch
 MNT4_CURVE, MNT4_LOG_N = "mnt4_298", 16
 MNT6_CURVE, MNT6_LOG_N = "mnt6_298", 20
-MNT_MAIN = ("mont_mul", "add_g1", "add_g2", "horner_g1", "horner_g2")
+MNT_MAIN = ("mont_mul", "add_g1", "add_g2", "horner_g1", "horner_g2", "capture_step_g1", "capture_step_g2")
 MNT_ASSEMBLY = MNT_MAIN + ("scalar_mul_g1", "scalar_mul_g2")
 MNT_A0_KERNELS = ("add_mixed_g1", "add_mixed_g2", "suffix_scan_g1", "suffix_scan_g2")
 # K1 at L = 21: MNT4-298's p (= MNT6-298's r) and MNT6-298's p (= MNT4-298's
@@ -2113,9 +2193,10 @@ MNT_ADD_CHECK_N = (1, 3, 33, 4096 + 5)
 def _mnt_counts(kernels, what, g2_deg):
     """read_counts(kernels) with K1's launches at each L and the generic-a
     launches by kernel and field degree; raises if K1 ran nothing at
-    L = 21, if the generic-a full addition did not launch over Fq and over
-    G2's field, if any full addition ran another law, or if a kernel of
-    the a = 0 law (K2, K3, K6, K7) launched."""
+    L = 21, if the generic-a full addition or its capture step did not
+    launch over Fq and over G2's field, if any full addition or capture
+    step ran another law, or if a kernel of the a = 0 law (K2, K3, K6,
+    K7) launched."""
     from groth16_tpu_torch.curves import cuda_point
     from groth16_tpu_torch.fields import cuda_fp
 
@@ -2127,21 +2208,25 @@ def _mnt_counts(kernels, what, g2_deg):
     if by_l["L21"] == 0:
         raise AssertionError(f"{what}: no K1 launch at L = 21")
     general = {k: v for k, v in cuda_point.GENERAL_A_LAUNCHES.items() if v}
-    adds = general.get("add_d1", 0) + general.get(f"add_d{g2_deg}", 0)
-    if not (general.get("add_d1") and general.get(f"add_d{g2_deg}")) or adds != launches["add_g1"] + launches["add_g2"]:
-        raise AssertionError(f"{what}: the generic-a additions did not carry every full addition: {general}")
+    for kind, (g1, g2) in (("add", ("add_g1", "add_g2")), ("capture_step", ("capture_step_g1", "capture_step_g2"))):
+        n = general.get(f"{kind}_d1", 0) + general.get(f"{kind}_d{g2_deg}", 0)
+        if not (general.get(f"{kind}_d1") and general.get(f"{kind}_d{g2_deg}")) or n != launches[g1] + launches[g2]:
+            raise AssertionError(f"{what}: the generic-a kernel did not carry every {kind}: {general}")
     return dict(launches, mont_mul_by_limbs=by_l, general_a=general)
 
 
-def _mnt_kernels(dpk, c, device, seed):
+def _mnt_kernels(dpk, c, device, seed, widest):
     """The generic-a group kernel of curve c over G1's Fq and G2's Fq2 or
     Fq3 on its key's points against the plain version, at MNT_ADD_CHECK_N
     points and at N_KERNEL (timed; with the infinity, P + P and P + (-P)
-    lanes), Horner at the prove's MSM shapes and the scalar multiplication
-    at the device assembly's, each timed beside its bound."""
+    lanes), its capture step at the prove's widest step (`widest`, by
+    kernel) and at N_KERNEL, Horner at the prove's MSM shapes and the
+    scalar multiplication at the device assembly's, each timed beside its
+    bound."""
     src_of = lambda g: _key_points(dpk, g)  # noqa: E731
     _check_adds(src_of, c, device, {"add_g1": MNT_ADD_CHECK_N, "add_g2": MNT_ADD_CHECK_N})
     rows = {**_point_kernels(dpk, c, N_KERNEL, device, mixed=(False,)),
+            **_capture_step_kernels(dpk, c, device, {k: (v, N_KERNEL) for k, v in widest.items()}),
             **_horner_kernels(_prove_horner_shapes(dpk), c, device)}
     rows.update(_scalar_mul_kernels(src_of, c, device, rows, seed, extra_lanes=()))
     return rows
@@ -2215,7 +2300,11 @@ def _phase_mnt(device, curve, log_n, seed):
     out["sampled_points_checked"] = _check_sampled(curve, pk, keep.pop("record"))
     out["sampled_check_s"] = time.time() - t0
     _step(out, "key")
-    rows = _mnt_kernels(prover.dpk, c, device, seed)
+    from groth16_tpu_torch.curves import cuda_point
+
+    widest = {k: cuda_point.LARGEST_LAUNCH[k] for k in ("capture_step_g1", "capture_step_g2")}
+    out["widest_capture_step"] = widest
+    rows = _mnt_kernels(prover.dpk, c, device, seed, widest)
     _step(out, "kernels")
     rng = Rng(seed)
     r, s = rng.field_element(c.r), rng.field_element(c.r)
@@ -2552,6 +2641,12 @@ def main() -> int:
         # assembly)
         path = next((p for p, n in by_path.items() if n), "main")
         kernels.append(dict(e, launches=by_path[path], path=path, launches_by_path=by_path))
+    # the generic-a capture step runs on the MNT proves alone: its row is
+    # MNT6-298's (the 2^20 prove's widest step), MNT4-298's beside it
+    for name in ("capture_step_g1", "capture_step_g2"):
+        e = dict(mnt_rows[MNT6_CURVE][name], **{MNT4_CURVE: mnt_rows[MNT4_CURVE][name]})
+        by_path = {p: n.get(name, 0) for p, n in mnt.items()}
+        kernels.append(dict(e, launches=by_path[MNT6_CURVE], path=MNT6_CURVE, launches_by_path=by_path))
     kernels += list(ubench_entries.values())
     emit({"kernels": kernels})
     print(card_line(), flush=True)

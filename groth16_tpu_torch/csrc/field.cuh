@@ -440,6 +440,67 @@ __device__ __forceinline__ void cond_sub_w(uint32_t (&x)[W], const uint32_t (&m)
   for (int j = 0; j < W; j++) x[j] = borrow ? x[j] : u[j];
 }
 
+// One term of lin_w's word sums: m x_j into pos or neg (m small, signed)
+__device__ __forceinline__ void lin_term(uint64_t& pos, uint64_t& neg, const uint32_t* x, int m, int j) {
+  pos += (uint64_t)x[j] * (uint32_t)(m > 0 ? m : 0);
+  neg += (uint64_t)x[j] * (uint32_t)(m < 0 ? -m : 0);
+}
+
+// r = k p + m0 x0 + m1 x1 + m2 x2 + m3 x3 on words (curves/formulas.py's
+// combination: the products by a and by the nonresidue, sums and
+// subtractions; small signed m, m = 0 for an unused term; the value is
+// >= 0 and < 2^(32 W)): every word's terms summed apart (independent
+// multiply-adds), then one signed carry pass.
+template <int W>
+__device__ __forceinline__ void lin_w(uint32_t (&r)[W], const uint32_t* p, int k, const uint32_t* x0, int m0,
+                                      const uint32_t* x1 = nullptr, int m1 = 0, const uint32_t* x2 = nullptr,
+                                      int m2 = 0, const uint32_t* x3 = nullptr, int m3 = 0) {
+  int64_t c = 0;
+#pragma unroll
+  for (int j = 0; j < W; j++) {
+    uint64_t pos = (uint64_t)p[j] * (uint32_t)k, neg = 0;
+    lin_term(pos, neg, x0, m0, j);
+    if (x1) lin_term(pos, neg, x1, m1, j);
+    if (x2) lin_term(pos, neg, x2, m2, j);
+    if (x3) lin_term(pos, neg, x3, m3, j);
+    const int64_t v = (int64_t)(pos - neg) + c;
+    r[j] = (uint32_t)v;
+    c = v >> 32;
+  }
+}
+
+// x <- x - kk p where x >= kk p (fp.cond_sub by kk p): the difference's
+// words from kk p's words in one signed carry pass; its sign picks
+template <int W>
+__device__ __forceinline__ void cond_sub_kp_w(uint32_t (&x)[W], const uint32_t* p, uint32_t kk) {
+  uint32_t u[W];
+  int64_t c = 0;
+  uint32_t hi = 0;
+#pragma unroll
+  for (int j = 0; j < W; j++) {
+    const uint64_t t = (uint64_t)p[j] * kk;
+    const int64_t v = (int64_t)x[j] - (int64_t)(uint32_t)t - (int64_t)hi + c;
+    hi = (uint32_t)(t >> 32);
+    u[j] = (uint32_t)v;
+    c = v >> 32;
+  }
+  const bool keep = c - (int64_t)hi < 0;  // x < kk p
+#pragma unroll
+  for (int j = 0; j < W; j++) x[j] = keep ? x[j] : u[j];
+}
+
+// fp.reduce_to_2p on words: x < bound p -> [0, 2p) by the same halving
+// sequence of conditional subtractions
+template <int W>
+__device__ __forceinline__ void reduce_from_w(uint32_t (&x)[W], int bound, const uint32_t* p) {
+  int kk = bound;
+#pragma unroll 1
+  while (kk > 2) {
+    kk = (kk + 1) / 2;
+    cond_sub_kp_w<W>(x, p, (uint32_t)kk);
+  }
+}
+
 // digits of any class (value < 2^(15 L)) -> words: rex, then pack
 template <int L>
 __device__ __forceinline__ void digits_to_words(const uint32_t (&d)[L],

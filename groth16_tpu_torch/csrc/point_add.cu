@@ -8,17 +8,18 @@
 //                     replaces add_mixed_g1_pallas (_add_mixed_kernel ->
 //                     mixed_add_g1_math).
 //   group_add_general  the generic-a law (RCB algorithm 1) of the MNT
-//                     curves (a = 2, 11), which the JAX package computes in
-//                     XLA (groth16_tpu/curves/point.py:_add_general): no
-//                     Pallas kernel carries it, so it replaces none; it is
-//                     the full addition, Horner and scalar-multiplication
-//                     body of a -DG16_GENERAL_A=1 library, over Fq, Fq2
-//                     (MNT4's nonresidue 17) or Fq3 (MNT6's G2, D = 3).
+//                     curves (a = 2, 11) in four product stages:
+//                     the scalar multiplication's body in a
+//                     -DG16_GENERAL_A=1 library, over Fq, Fq2 (MNT4's
+//                     nonresidue 17) or Fq3 (MNT6's G2, D = 3).  The
+//                     generic-a full addition and the capture step run
+//                     csrc/general_add.cu, the MSM's Horner chain
+//                     csrc/horner.cu (every L and law).
 // Each library holds one formula, so the four build in parallel:
 // -DG16_LIMBS=L (digits of Fq), -DG16_D=1 (G1, Fq), 2 (G2, Fq2) or 3 (G2,
 // Fq3; generic-a only), -DG16_MIXED=0 (rcb_add) or 1 (the mixed formula),
 // -DG16_NR=nr (the tower's nonresidue; unused for G1), -DG16_GENERAL_A=1
-// (the generic-a law; full additions only).  The library's name says which
+// (the generic-a law: the scalar multiplication alone).  The library's name says which
 // (utils/cuda_build.py:point_add_variant).
 //
 // Bound on an H100: integer multiply-add bound.  An addition needs 12
@@ -32,9 +33,9 @@
 // one by the nonresidue for |NR| > 16; x9 over Fq3) in four product rounds
 // of 6, 4, 1 and 6, so more multiply-adds per byte still.
 //
-// The full addition (K4, K5), the G2 mixed one (K7) and the MSM's Horner
-// chain run on a group of lanes; the G1 mixed addition (K6) on one thread
-// on words:
+// The full addition (K4, K5), the G2 mixed one (K7) and the scalar
+// multiplication run on a group of lanes; the G1 mixed addition (K6) on
+// one thread on words:
 //   point_add_group_kernel a group of lanes per point (6 for G1, 5 groups a
 //                          warp; 24 for G2, one a warp; 27 over Fq3, two
 //                          products a lane): each of the
@@ -52,10 +53,6 @@
 //                          Most launches of a prove carry a few points,
 //                          where one addition's latency is the launch's
 //                          time.
-//   horner_kernel          res = sum_w 2^(c w) S_w for every lane of one MSM
-//                          in one launch: per window from the top c
-//                          doublings add(P, P) and one add of S_w, each the
-//                          group body, the running point in shared memory.
 //   scalar_mul_kernel      bits * P for every lane in one launch (the proof
 //                          assembly's r, s and rs multiples: 1-3 points of
 //                          ~255 bits): the double-and-add select loop,
@@ -103,7 +100,7 @@ using g16::Fe;
 
 // -- the group form --------------------------------------------------------------
 
-// Warps a block of the group kernels (K4, K5, K7, Horner).  A block's
+// Warps a block of the group kernels (K4, K5, K7).  A block's
 // points keep their words in static shared memory, which a block may hold
 // up to 48 KB of: 4 warps take 41 KB at L = 26 (G1; 27 KB over Fq2), so
 // at L = 52 (BW6-761, G1 and G2 over Fq: 20 KB a warp) a block has 2.
@@ -680,59 +677,6 @@ __global__ void __launch_bounds__(32 * kGroupWarps<L>, 4)
   }
 }
 
-// res[l] = sum_w 2^(c w) sums[l, w] from res = (0 : 1 : 0): for each
-// window from the top, c doublings add(P, P), then add(P, sums[l, w]);
-// sums planes [*coords, lanes, windows], res planes [*coords, lanes].
-template <int L, int D, int NR>
-__global__ void __launch_bounds__(32 * kGroupWarps<L>, 4)
-    horner_kernel(const uint32_t* __restrict__ sx, const uint32_t* __restrict__ sy,
-                  const uint32_t* __restrict__ sz, uint32_t* __restrict__ rx,
-                  uint32_t* __restrict__ ry, uint32_t* __restrict__ rz, long long lanes,
-                  int windows, int c, const uint32_t* __restrict__ consts, uint32_t n0) {
-  using G = Group<L, D>;
-  __shared__ uint32_t smem[kGroupWarps<L> * G::PER_WARP * G::WORDS];
-  const long long first =
-      ((long long)blockIdx.x * kGroupWarps<L> + threadIdx.x / 32) * G::PER_WARP;
-  if (first >= lanes) return;
-  uint32_t* s;
-  const int t = group_lane<L, D>(smem, first, lanes, s);
-  const long long l = first + (threadIdx.x % 32) / G::LANES;
-  Consts<L> k{consts, n0};
-  if (t >= 0) {
-    for (int w = t; w < D * L; w += G::LANES) {
-      const int j = w / D, cc = w % D, o = cc * G::LP + j;
-      s[X1 * G::E + o] = 0;
-      s[Y1 * G::E + o] = cc == 0 ? k.one(j) : 0;
-      s[Z1 * G::E + o] = 0;
-    }
-    load_b3<L, D>(s, t, k);
-  }
-  __syncwarp();
-  const long long stride = lanes * windows;
-#pragma unroll 1
-  for (int w = windows - 1; w >= 0; w--) {
-#pragma unroll 1
-    for (int d = 0; d <= c; d++) {
-      if (t >= 0) {
-        if (d < c) {  // P2 = P
-          for (int x = t; x < 3 * G::E; x += G::LANES) s[X2 * G::E + x] = s[X1 * G::E + x];
-        } else {  // P2 = sums[l, w]
-          load_elem<L, D>(s + X2 * G::E, sx, stride, l * windows + w, t);
-          load_elem<L, D>(s + Y2 * G::E, sy, stride, l * windows + w, t);
-          load_elem<L, D>(s + Z2 * G::E, sz, stride, l * windows + w, t);
-        }
-      }
-      __syncwarp();
-      group_body<L, D, NR>(s, t, k);
-    }
-  }
-  if (t >= 0) {
-    store_elem<L, D>(rx, lanes, l, s + 0 * G::E, t);
-    store_elem<L, D>(ry, lanes, l, s + 1 * G::E, t);
-    store_elem<L, D>(rz, lanes, l, s + 2 * G::E, t);
-  }
-}
-
 // warps a block of the scalar multiplication (26 KB of shared memory a
 // warp at L = 52)
 template <int L>
@@ -973,6 +917,7 @@ extern "C" int g16_point_add_mixed_group(const void* x1, const void* y1, const v
   return (int)cudaGetLastError();
 }
 #else
+#if !G16_GENERAL_A
 // The full addition in the group form (K4, K5).
 extern "C" int g16_point_add_group(const void* x1, const void* y1, const void* z1,
                                    const void* x2, const void* y2, const void* z2, void* x3,
@@ -987,19 +932,7 @@ extern "C" int g16_point_add_group(const void* x1, const void* y1, const void* z
           n, (const uint32_t*)consts, n0);
   return (int)cudaGetLastError();
 }
-
-// Horner over `windows` window sums of `lanes` MSMs with c-bit windows.
-extern "C" int g16_horner(const void* sx, const void* sy, const void* sz, void* rx, void* ry,
-                          void* rz, long long lanes, int windows, int c, const void* consts,
-                          unsigned n0, void* stream) {
-  constexpr int per_block = kGroupWarps<G16_LIMBS> * Group<G16_LIMBS, G16_D>::PER_WARP;
-  long long blocks = (lanes + per_block - 1) / per_block;
-  horner_kernel<G16_LIMBS, G16_D, G16_NR><<<(unsigned)blocks, 32 * kGroupWarps<G16_LIMBS>, 0,
-                                            (cudaStream_t)stream>>>(
-      (const uint32_t*)sx, (const uint32_t*)sy, (const uint32_t*)sz, (uint32_t*)rx,
-      (uint32_t*)ry, (uint32_t*)rz, lanes, windows, c, (const uint32_t*)consts, n0);
-  return (int)cudaGetLastError();
-}
+#endif
 
 // bits[l] * P[l] for `lanes` points, bits int32 [lanes, nbits] little-endian.
 extern "C" int g16_scalar_mul(const void* px, const void* py, const void* pz, const void* bits,

@@ -8,20 +8,29 @@ Counterpart of `groth16_tpu/curves/pallas_point.py`:
   add_g2        K5  replaces pallas_point.add_g2_pallas
   add_mixed_g1  K6  replaces pallas_point.add_mixed_g1_pallas
   add_mixed_g2  K7  replaces pallas_point.add_mixed_g2_pallas
-  horner_g1/g2  the Horner chain of `msm/pippenger.py` (a Python loop of
-                K4/K5 launches before; the JAX package's `fori_loop` of
-                `CurveDevice.add` at groth16_tpu/msm/pippenger.py:660)
+  horner_g1/g2  the Horner chain of `msm/pippenger.py` (the JAX package's
+                `fori_loop` of `CurveDevice.add` at
+                groth16_tpu/msm/pippenger.py:660): csrc/horner.cu, one
+                block an MSM lane, the doubling and addition programs of
+                curves/formulas.py on 32-bit words
   scalar_mul_g1/g2  per-lane double-and-add of the proof assembly (the
                 JAX package's `fori_loop` of `CurveDevice.add` in
                 `scalar_mul_bits`, groth16_tpu/curves/point.py:367)
+  capture_step_g1/g2  one step of the capture scan where a != 0: the
+                accumulator plus an affine row, and the step before's
+                captures, in one launch (the JAX package's from_affine,
+                `_add_general` and select, groth16_tpu/msm/scans.py)
 
 The full addition, Horner and the scalar multiplication also take the
-curve coefficient a: where a != 0 (MNT4-298, MNT6-298) their library is
-built with the generic-a law (RCB algorithm 1, the JAX package's
-`CurveDevice._add_general`, groth16_tpu/curves/point.py:200, which has no
-Pallas kernel), over Fq, Fq2 (MNT4's nonresidue 17) or Fq3 (MNT6's G2,
-`deg` 3).  The mixed additions and the scans exist for a = 0 only, as in
-the JAX package.
+curve coefficient a: where a != 0 (MNT4-298, MNT6-298) the full addition
+and the capture step run the generic-a group kernel (csrc/general_add.cu:
+RCB algorithm 1, the JAX package's `CurveDevice._add_general`,
+groth16_tpu/curves/point.py:200, which has no Pallas kernel; 32-bit
+words, one lane a tower component) over Fq, Fq2 (MNT4's nonresidue 17)
+or Fq3 (MNT6's G2, `deg` 3), Horner its programs for that law, and the
+scalar multiplication the four-stage generic-a group body (point_add.cu).  The
+mixed additions and the scans exist for a = 0 only, as in the JAX
+package.
 
 One CUDA kernel body per formula (csrc/point_add.cu: rcb_add<F>,
 rcb_add_mixed<F>, and K6's rcb_add_mixed_w) templated on the coordinate
@@ -40,11 +49,15 @@ Coordinates are limb-major `int32[L, N]` (G1) or `int32[L, 2, N]` (G2),
 < 2p with exact digits in and out.
 
 Plain versions, beside each wrapper: K4/K5 run the stacked RCB path of
-`groth16_tpu/curves/point.py:CurveDevice.add`; K6/K7 transcribe
-`pallas_point.mixed_add_g1_math` and its Fp2 form; Horner is the loop of
-`msm/pippenger.py` over the plain K4/K5, the scalar multiplication the
-select loop of `CurveDevice.scalar_mul_bits`.  Their multiplies run the plain
-version of K1, so they are plain PyTorch on any device.  The kernels
+`groth16_tpu/curves/point.py:CurveDevice.add` (a = 0) or the generic-a
+program of curves/formulas.py (a != 0); K6/K7 transcribe
+`pallas_point.mixed_add_g1_math` and its Fp2 form; Horner runs the
+programs of its kernel in a loop (c doublings and an addition a window),
+the capture step from_affine, the generic-a program and the select, the
+scalar multiplication the select loop of `CurveDevice.scalar_mul_bits`
+(where a != 0 on the four-stage law, `add_general_rounds_plain`).  Their
+multiplies run the plain version of K1 (or Python ints for a few points
+on the CPU), so they are plain PyTorch on any device.  The kernels
 repeat the same operations in the same order and return the same
 digits.
 
@@ -59,6 +72,7 @@ import functools
 
 import torch
 
+from groth16_tpu_torch.curves import formulas
 from groth16_tpu_torch.fields.cuda_fp import (
     KERNEL_LIMBS,
     KERNEL_WORDS,
@@ -73,21 +87,21 @@ from groth16_tpu_torch.fields.spec import FpSpec
 # else
 LAUNCHES = {
     "add_g1": 0, "add_g2": 0, "horner_g1": 0, "horner_g2": 0, "add_mixed_g1": 0, "add_mixed_g2": 0,
-    "scalar_mul_g1": 0, "scalar_mul_g2": 0,
+    "scalar_mul_g1": 0, "scalar_mul_g2": 0, "capture_step_g1": 0, "capture_step_g2": 0,
 }
 # calls of the plain versions on CUDA tensors (the main path makes none)
 PLAIN_CALLS = dict.fromkeys(LAUNCHES, 0)
 # the launches of LAUNCHES that ran the generic-a law (a != 0), by kernel
 # and by the coordinate field's degree
 GENERAL_A_LAUNCHES = {
-    f"{name}_d{d}": 0 for name in ("add", "horner", "scalar_mul") for d in (1, 2, 3)
+    f"{name}_d{d}": 0 for name in ("add", "capture_step", "horner", "scalar_mul") for d in (1, 2, 3)
 }
 # the additions' launches by points a launch, and the most points of one
 # launch
 SIZE_CLASSES = ("1-4", "5-4096", ">4096")
 LAUNCH_SIZES = {
     name: dict.fromkeys(SIZE_CLASSES, 0)
-    for name in ("add_g1", "add_g2", "add_mixed_g1", "add_mixed_g2")
+    for name in ("add_g1", "add_g2", "add_mixed_g1", "add_mixed_g2", "capture_step_g1", "capture_step_g2")
 }
 LARGEST_LAUNCH = dict.fromkeys(LAUNCH_SIZES, 0)
 
@@ -186,18 +200,101 @@ def _lib(n_limbs: int, deg: int, mixed: bool, nr: int, general: bool = False):
             lib.g16_point_add_mixed_group.argtypes = [P] * 8 + tail
             lib.g16_point_add_mixed_group.restype = ctypes.c_int
         else:
-            lib.g16_point_add_group.argtypes = [P] * 9 + tail
-            lib.g16_point_add_group.restype = ctypes.c_int
-            lib.g16_horner.argtypes = [P] * 6 + [
-                ctypes.c_longlong, ctypes.c_int, ctypes.c_int, P, ctypes.c_uint, P
-            ]
-            lib.g16_horner.restype = ctypes.c_int
+            if not general:  # the generic-a library holds the scalar multiplication alone
+                lib.g16_point_add_group.argtypes = [P] * 9 + tail
+                lib.g16_point_add_group.restype = ctypes.c_int
             lib.g16_scalar_mul.argtypes = [P] * 7 + [
                 ctypes.c_longlong, ctypes.c_int, P, ctypes.c_uint, P
             ]
             lib.g16_scalar_mul.restype = ctypes.c_int
         lib._g16_typed = True
     return lib
+
+
+def _general_lib(n_limbs: int, deg: int, nr: int):
+    """The generic-a group kernel's library (csrc/general_add.cu)."""
+    from groth16_tpu_torch.utils.cuda_build import general_add_variant, library
+
+    lib = library(general_add_variant(n_limbs, deg, nr))
+    if not getattr(lib, "_g16_typed", False):
+        P, LL, U = ctypes.c_void_p, ctypes.c_longlong, ctypes.POINTER(ctypes.c_uint)
+        lib.g16_general_add.argtypes = [P] * 9 + [LL, U, P]
+        lib.g16_general_add.restype = ctypes.c_int
+        lib.g16_general_capture_step.argtypes = (
+            [P] * 8 + [LL, ctypes.c_int] + [P] * 5 + [LL, ctypes.c_int, U, P]
+        )
+        lib.g16_general_capture_step.restype = ctypes.c_int
+        lib._g16_typed = True
+    return lib
+
+
+def _horner_lib(n_limbs: int):
+    """The Horner kernel's library at L (csrc/horner.cu)."""
+    from groth16_tpu_torch.utils.cuda_build import horner_variant, library
+
+    lib = library(horner_variant(n_limbs))
+    if not getattr(lib, "_g16_typed", False):
+        P, LL, I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        lib.g16_horner.argtypes = [P] * 6 + [LL, I, I, I, P, P, I, I, P, I, I, ctypes.POINTER(ctypes.c_uint), P]
+        lib.g16_horner.restype = ctypes.c_int
+        lib._g16_typed = True
+    return lib
+
+
+def _words(v: int, W: int) -> list:
+    return [(v >> (32 * i)) & 0xFFFFFFFF for i in range(W)]
+
+
+@functools.lru_cache(maxsize=None)
+def general_words(spec: FpSpec, D: int, nr, a_val, b3_val):
+    """The generic-a group kernel's launch constants (csrc/general_add.cu:
+    read_consts): p and -p^-1 mod 2^32 (K1's), one (R mod p), b3's
+    constant of each component (Montgomery form, W words each, three),
+    a's multipliers, the components a and b3 read (three each, zero
+    past D) and a's largest multiplier."""
+    W = KERNEL_WORDS[spec.n_limbs]
+    a_mult, a_src, b_vals, b_src = formulas.ga_lanes(spec.modulus, D, nr or 0, a_val, b3_val)
+    vals = list(word_consts(spec)) + _words(spec.to_mont_int(1), W)
+    for c in range(3):
+        vals += _words(spec.to_mont_int(b_vals[c]) if c < D else 0, W)
+    for xs in (a_mult, a_src, b_src):
+        vals += list(xs) + [0] * (3 - D)
+    vals.append(max(a_mult))
+    return (ctypes.c_uint * len(vals))(*vals)
+
+
+@functools.lru_cache(maxsize=None)
+def horner_programs(spec: FpSpec, D: int, nr, a_val, b3_val) -> dict:
+    """The Horner kernel's launch data for one curve group: its doubling
+    and addition programs (curves/formulas.py: programs) encoded on one
+    slot space (the addition's slots past its two points moved after the
+    doubling's: p2, its second point's first slot), the slots, the
+    threads a block (the widest step, in warps), and the constants'
+    (slot, W words) records followed by one's W words."""
+    dbl, add = formulas.programs(spec, D, nr or 0, a_val, b3_val)
+    base, shift = 3 * D, dbl.n_slots - 3 * D
+
+    def remap(slot):
+        return slot if slot < base else slot + shift
+
+    W = KERNEL_WORDS[spec.n_limbs]
+    consts = []
+    for prog, move in ((dbl, lambda x: x), (add, remap)):
+        for slot, v in prog.consts.items():
+            consts += [move(slot)] + _words(v, W)
+    widest = max(formulas.widest(dbl), formulas.widest(add), base)
+    return {
+        "dbl": formulas.encode(dbl), "add": formulas.encode(add, remap), "p2": remap(base),
+        "slots": dbl.n_slots + add.n_slots - base, "threads": 32 * -(-widest // 32),
+        "consts": consts + _words(spec.to_mont_int(1), W), "nconsts": len(dbl.consts) + len(add.consts),
+    }
+
+
+@functools.lru_cache(maxsize=None)
+def _horner_tensors(spec: FpSpec, D: int, nr, a_val, b3_val, device: torch.device):
+    hp = horner_programs(spec, D, nr, a_val, b3_val)
+    consts = torch.tensor([v - (1 << 32) if v >= 1 << 31 else v for v in hp["consts"]], dtype=torch.int32)
+    return tuple(torch.tensor(hp[k], dtype=torch.int32).to(device) for k in ("dbl", "add")) + (consts.to(device),)
 
 
 def _device(name, tensors) -> torch.device:
@@ -244,10 +341,13 @@ def _launch(name, mixed, spec, nr, deg, b3_val, a_val, p1, p2):
     outs = [torch.empty(lead + (n,), dtype=torch.int32, device=dev) for _ in range(3)]
     if n == 0:
         return tuple(outs)
-    lib = _lib(L, D, mixed, 0 if nr is None else nr, general)
+    lib = None if general else _lib(L, D, mixed, 0 if nr is None else nr)
     ptrs = [x.data_ptr() for x in ins] + [o.data_ptr() for o in outs]
     stream = torch.cuda.current_stream(dev).cuda_stream
-    if mixed and D == 1:  # K6
+    if general:  # the generic-a group kernel on words
+        words = general_words(spec, D, nr, a_val, b3_val)
+        rc = _general_lib(L, D, nr or 0).g16_general_add(*ptrs, n, words, stream)
+    elif mixed and D == 1:  # K6
         form = MIXED_G1_FORMS[mixed_g1_form(n, mixed_g1_waves(L, dev))]
         rc = lib.g16_point_add_mixed_g1(form, *ptrs, n, mixed_word_consts(spec, b3_val), stream)
     else:  # K7, or K4/K5: a lane group a point
@@ -318,10 +418,12 @@ def _horner(name, spec, nr, deg, b3_val, a_val, sums, c: int):
     outs = [torch.empty(lead + (lanes,), dtype=torch.int32, device=dev) for _ in range(3)]
     if lanes == 0:
         return tuple(outs)
-    consts = _consts(spec, nr, b3_val, a_val, dev)
-    rc = _lib(L, D, False, 0 if nr is None else nr, general).g16_horner(
-        *[x.data_ptr() for x in sums], *[o.data_ptr() for o in outs], lanes, W, c,
-        consts.data_ptr(), spec.n0inv, torch.cuda.current_stream(dev).cuda_stream,
+    hp = horner_programs(spec, D, nr, a_val, b3_val)
+    dbl, add, consts = _horner_tensors(spec, D, nr, a_val, b3_val, dev)
+    rc = _horner_lib(L).g16_horner(
+        *[x.data_ptr() for x in sums], *[o.data_ptr() for o in outs], lanes, W, c, D,
+        dbl.data_ptr(), add.data_ptr(), hp["p2"], hp["slots"], consts.data_ptr(), hp["nconsts"],
+        hp["threads"], word_consts(spec), torch.cuda.current_stream(dev).cuda_stream,
     )
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
@@ -384,6 +486,61 @@ def scalar_mul_g2(spec: FpSpec, nr: int, b3_val, pt, bits, a_val=0, deg: int = 2
     return _scalar_mul("scalar_mul_g2", spec, nr, deg, b3_val, a_val, pt, bits)
 
 
+def _capture_step(name, spec, nr, deg, b3_val, a_val, acc, xy, cap, jk, src, k_prev, add):
+    dev = _device(name, list(acc) + (list(xy) if add else []))
+    if dev.type == "cpu":
+        return capture_step_plain(_plain_ops(spec, nr, deg), b3_val, a_val, acc, xy, cap, jk, src, k_prev, add)
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {dev}")
+    if a_is_zero(a_val):
+        raise ValueError(f"{name}: the capture step is the generic-a law's (a != 0)")
+    L, D = _check_kernel(name, spec, nr, deg, True)
+    lead = (L,) if D == 1 else (L, D)
+    n = acc[0].shape[-1]
+    ins = [check_operand(x, lead, n, f"{name} accumulator {i}") for i, x in enumerate(acc)]
+    rows = [check_operand(x, lead, n, f"{name} row {i}") for i, x in enumerate(xy)] if add else ins[:2]
+    T = 0
+    if cap is not None:
+        T = cap[0].shape[-1]
+        cap = [check_operand(x, lead, T, f"{name} capture {i}") for i, x in enumerate(cap)]
+        for x, what in ((jk, "jk"), (src, "src")):
+            if x.dtype != torch.int32 or tuple(x.shape) != (T,) or not x.is_contiguous():
+                raise ValueError(f"{name}: {what} must be contiguous int32 [{T}]")
+    outs = [torch.empty(lead + (n,), dtype=torch.int32, device=dev) for _ in range(3)] if add else ins
+    if (n == 0 or not add) and T == 0:
+        return tuple(outs), None if cap is None else tuple(cap)
+    null = [None] * 5
+    tail = [x.data_ptr() for x in cap] + [jk.data_ptr(), src.data_ptr()] if T else null
+    rc = _general_lib(L, D, nr or 0).g16_general_capture_step(
+        *[x.data_ptr() for x in ins + rows], *[o.data_ptr() for o in outs], n, int(add), *tail, T,
+        k_prev, general_words(spec, D, nr, a_val, b3_val), torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+    LAUNCHES[name] += 1
+    _count_general("capture_step", D, True)
+    if add:
+        LAUNCH_SIZES[name][size_class(n)] += 1
+        LARGEST_LAUNCH[name] = max(LARGEST_LAUNCH[name], n)
+    return tuple(outs), None if cap is None else tuple(cap)
+
+
+def capture_step_g1(spec: FpSpec, b3_val: int, a_val, acc, xy, cap=None, jk=None, src=None, k_prev=-1,
+                    add=True):
+    """One step of the generic-a capture scan on [L, n] coordinates: acc +
+    affine xy ((0, 0) at infinity) where `add` (else acc unchanged), and
+    cap[t] = acc[src[t]] for the targets t < T with jk[t] == k_prev (cap
+    [L, T], jk and src int32 [T]; on the card cap is written in place).
+    Returns (acc', cap')."""
+    return _capture_step("capture_step_g1", spec, None, 1, b3_val, a_val, acc, xy, cap, jk, src, k_prev, add)
+
+
+def capture_step_g2(spec: FpSpec, nr: int, b3_val, a_val, acc, xy, cap=None, jk=None, src=None, k_prev=-1,
+                    add=True, deg: int = 2):
+    """capture_step_g1 over Fq2 (Fq3): coordinates [L, deg, n]."""
+    return _capture_step("capture_step_g2", spec, nr, deg, b3_val, a_val, acc, xy, cap, jk, src, k_prev, add)
+
+
 # -- plain versions --------------------------------------------------------------
 
 
@@ -437,15 +594,28 @@ def add_plain(k, b3_val, p1, p2, a_val=0):
 
 
 def add_general_plain(k, b3_val, a_val, p1, p2):
-    """Plain version of the generic-a form of K4/K5: RCB algorithm 1 of
-    eprint 2015/1060 as `groth16_tpu/curves/point.py:CurveDevice.
-    _add_general` stacks it, 12 products, 3 by a and 2 by b3 in four
-    product rounds (6, 4, 1, 6).
+    """Plain version of the generic-a group kernel (csrc/general_add.cu):
+    RCB algorithm 1 of eprint 2015/1060 (the JAX package's
+    `CurveDevice._add_general`, groth16_tpu/curves/point.py:200) in the
+    kernel's order, curves/formulas.py:general_add: three product rounds
+    (6 tower products, 2 by b3, 6), the products by a and by the
+    nonresidue as small multiples.  The same points mod p as the JAX
+    package's law, coordinate for coordinate; other representatives."""
+    _count_plain(k, False, p1[0])
+    prog = formulas.programs(k.spec, k.tower_deg, getattr(k, "nr_int", 0), a_val, b3_val)[1]
+    return formulas.run_plain(prog, (p1, p2))
+
+
+def add_general_rounds_plain(k, b3_val, a_val, p1, p2):
+    """Plain version of the four-stage generic-a group body, which the scalar
+    multiplication's generic-a library keeps (point_add.cu:
+    group_add_general): RCB algorithm 1 of eprint 2015/1060 as
+    `groth16_tpu/curves/point.py:CurveDevice._add_general` stacks it, 12
+    products, 3 by a and 2 by b3 in four product rounds (6, 4, 1, 6).
 
     Value ledger (multiples of p): xy/xz/yz < 6p; d < 4p; X3t/Z3t < 6p;
     e < 8p; t2m < 4p; f < 4p; round-4 products <= 48 p^2 (< 64 p^2
     budget); outputs < 4p pre-reduce."""
-    _count_plain(k, False, p1[0])
     X1, Y1, Z1 = p1
     X2, Y2, Z2 = p2
     dev = X1.device
@@ -482,12 +652,14 @@ def add_general_plain(k, b3_val, a_val, p1, p2):
 
 
 def horner_plain(k, b3_val, sums, c: int, a_val=0):
-    """Plain version of the Horner kernel: the loop of msm/pippenger.py
-    over the plain K4/K5, from res = (0 : 1 : 0): for each window from the
-    top, c doublings add(res, res), then add(res, sums[.., w])."""
+    """Plain version of the Horner kernel (csrc/horner.cu): from res =
+    (0 : 1 : 0), for each window from the top, c runs of the doubling
+    program and one of the addition program on (res, sums[.., w])
+    (curves/formulas.py: programs), in the kernel's order."""
     X = sums[0]
     if X.is_cuda:
         PLAIN_CALLS[f"horner_{_group(k)}"] += 1
+    dbl, add = formulas.programs(k.spec, k.tower_deg, getattr(k, "nr_int", 0), a_val, b3_val)
     lanes, W = X.shape[-2:]
     res = (
         k.zero((lanes,), device=X.device),
@@ -496,9 +668,29 @@ def horner_plain(k, b3_val, sums, c: int, a_val=0):
     )
     for w in reversed(range(W)):
         for _ in range(c):
-            res = add_plain(k, b3_val, res, res, a_val)
-        res = add_plain(k, b3_val, res, tuple(x[..., w] for x in sums), a_val)
+            res = formulas.run_plain(dbl, (res,))
+        res = formulas.run_plain(add, (res, tuple(x[..., w].contiguous() for x in sums)))
     return res
+
+
+def capture_step_plain(k, b3_val, a_val, acc, xy, cap=None, jk=None, src=None, k_prev=-1, add=True):
+    """Plain version of the capture step: cap[t] = acc[src[t]] where jk[t]
+    == k_prev (the select of groth16_tpu/msm/scans.py), then acc + the
+    affine row through from_affine (infinity where y = 0 mod p in every
+    component: (0 : 1 : 0), else (x : y : 1)) and add_general_plain."""
+    if acc[0].is_cuda:
+        PLAIN_CALLS[f"capture_step_{_group(k)}"] += 1
+    if cap is not None and k_prev >= 0:
+        take = jk == k_prev
+        cap = tuple(torch.where(take, x[..., src.long()], y) for x, y in zip(acc, cap))
+    if add:
+        x2, y2 = xy
+        shape = x2.shape[k.coord_ndim :]
+        inf = k.is_zero(y2, bound_k=2)
+        zero, one = k.zero(shape, device=x2.device), k.one(shape, device=x2.device)
+        p2 = (k.select(inf, zero, x2), k.select(inf, one, y2), k.select(inf, zero, one))
+        acc = add_general_plain(k, b3_val, a_val, acc, p2)
+    return acc, cap
 
 
 def scalar_mul_plain(k, b3_val, pt, bits, a_val=0):
@@ -516,10 +708,16 @@ def scalar_mul_plain(k, b3_val, pt, bits, a_val=0):
         k.zero((lanes,), device=X.device),
     )
     base = pt
+
+    def add(p1, p2):
+        if a_is_zero(a_val):
+            return add_plain(k, b3_val, p1, p2)
+        return add_general_rounds_plain(k, b3_val, a_val, p1, p2)
+
     for i in range(bits.shape[-1]):
         take = (bits[..., i] & 1).bool()
-        acc = tuple(torch.where(take, s, a) for s, a in zip(add_plain(k, b3_val, acc, base, a_val), acc))
-        base = add_plain(k, b3_val, base, base, a_val)
+        acc = tuple(torch.where(take, s, a) for s, a in zip(add(acc, base), acc))
+        base = add(base, base)
     return acc
 
 

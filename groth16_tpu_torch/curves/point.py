@@ -21,9 +21,11 @@ kernels mask their own ragged edge.  `to_affine` inverts every Z of a
 batch with one Fermat inverse (fields/fp.py batch_inv, K1 products).
 `scalar_mul_bits` runs each lane's double-and-add in one launch of the
 scalar-multiplication kernel (its plain select loop on the CPU).  Where
-a != 0, `add`, `horner` and `scalar_mul_bits` run the generic-a form of
-the same kernels, and `add_affine` is `add` of the rebuilt projective
-point, as in the JAX package (which has no mixed generic-a formula).
+a != 0, `add` runs the generic-a group kernel, `horner` and
+`scalar_mul_bits` their generic-a forms, and `add_affine` and
+`capture_step` the group kernel's capture step: the full addition of the
+projective point it rebuilds from the affine row in registers, as the
+JAX package adds the rebuilt point (it has no mixed generic-a formula).
 """
 
 from __future__ import annotations
@@ -139,12 +141,13 @@ class CurveDevice:
         tensors their plain version (the same 13-product mixed formula;
         equal mod p to the complete add of the reconstructed projective
         point, representatives may differ within < 2p).  Where a != 0:
-        `add` of the rebuilt projective point (the JAX package's path)."""
+        the capture step without a capture (the full addition of the
+        projective point rebuilt in registers, the JAX package's path)."""
         k = self.k
-        if not self.a_is_zero:
-            x2, y2 = xy2
-            return self.add(p1, self.from_affine(x2, y2, k.is_zero(y2, bound_k=2)))
         flat, shape = self._flat(list(p1) + list(xy2))
+        if not self.a_is_zero:
+            out, _ = self.capture_step(tuple(flat[:3]), tuple(flat[3:]))
+            return self._unflat(out, shape)
         if k.tower_deg == 1:
             out = cuda_point.add_mixed_g1(k.spec, self.b3_val, flat[:3], flat[3:])
         else:
@@ -152,6 +155,20 @@ class CurveDevice:
                 k.spec, k.nr_int, self.b3_val, flat[:3], flat[3:]
             )
         return self._unflat(out, shape)
+
+    def capture_step(self, acc: Point, xy, cap=None, jk=None, src=None, k_prev: int = -1, add: bool = True):
+        """One step of the capture scan where a != 0, on flat [*coords, n]
+        points: acc + the affine row xy (infinity (0, 0)) where `add`, and
+        cap[t] = acc[src[t]] for the targets with jk[t] == k_prev (the
+        step before's captures, read from this step's input), in one
+        launch of the generic-a group kernel on CUDA tensors (cap written
+        in place).  Returns (acc', cap')."""
+        k = self.k
+        if k.tower_deg == 1:
+            return cuda_point.capture_step_g1(k.spec, self.b3_val, self.a_val, acc, xy, cap, jk, src, k_prev, add)
+        return cuda_point.capture_step_g2(
+            k.spec, k.nr_int, self.b3_val, self.a_val, acc, xy, cap, jk, src, k_prev, add, k.tower_deg
+        )
 
     def scalar_mul_bits(self, pt: Point, bits: torch.Tensor) -> Point:
         """Per-lane variable scalar multiplication: bits int32 [*batch,

@@ -3,8 +3,9 @@
 Port of `groth16_tpu/msm/scans.py`.  Each `lax.scan` / `fori_loop` of the
 JAX version is a Python loop over point-add launches here (K4/K5 for
 projective adds, K6/K7 for the mixed adds of the capture scan, the MSM
-path taken with `msm_fused_scan=False`), with the same chunking, so the
-work stays ~N adds:
+path taken with `msm_fused_scan=False`; where a != 0 the generic-a group
+kernel's capture step, one launch a step), with the same chunking, so
+the work stays ~N adds:
 
   - within-chunk pass: view the [N] element axis as [C, K] and step
     along K (K sequential C-wide adds);
@@ -16,6 +17,7 @@ coordinate axes LEAD and the element axis is the TRAILING axis.
 
 from __future__ import annotations
 
+import math
 from typing import Tuple
 
 import torch
@@ -133,6 +135,8 @@ def scan_storage_mixed_capture(g: CurveDevice, xy_T, K: int, C: int,
     rows = tuple(
         x.reshape(cs + lead + (K, C)).movedim(-2, 0).contiguous() for x in (x_T, y_T)
     )
+    if not g.a_is_zero:
+        return _capture_steps(g, rows, K, C, jk, jc, reverse)
     lead_iotas = tuple(
         torch.arange(d, device=dev).reshape((1,) * i + (d,) + (1,) * (len(lead) - i))
         for i, d in enumerate(lead)
@@ -147,6 +151,33 @@ def scan_storage_mixed_capture(g: CurveDevice, xy_T, K: int, C: int,
         acc_at = tuple(x[(Ellipsis,) + lead_iotas + (jc,)] for x in acc)
         cap = g.select(jk == k, acc_at, cap)
     return cap, acc
+
+
+def _capture_steps(g: CurveDevice, rows, K: int, C: int, jk, jc, reverse: bool):
+    """scan_storage_mixed_capture where a != 0, on flat points: step k is
+    one capture step (CurveDevice.capture_step: the row added, and the
+    captures of the step before copied from its input, in one launch of
+    the generic-a group kernel), one capture after the last step."""
+    cs = tuple(rows[0].shape[1 : 1 + g.k.coord_ndim])
+    lead = tuple(rows[0].shape[1 + g.k.coord_ndim : -1])
+    nl = math.prod(lead)
+    T = jk.shape[-1]
+    dev = rows[0].device
+    # flat capture target i T + t of lead entry i reads accumulator i C + jc
+    base = (torch.arange(nl, device=dev) * C).reshape(lead + (1,))
+    src = (base + jc.long()).reshape(-1).to(torch.int32).contiguous()
+    jkf = jk.reshape(-1).to(torch.int32).contiguous()
+    acc = g.infinity((nl * C,), device=dev)
+    cap = g.infinity((nl * T,), device=dev)
+    k_prev = -1
+    for i in range(K):
+        k = K - 1 - i if reverse else i
+        xy = tuple(r[k].reshape(cs + (nl * C,)) for r in rows)
+        acc, cap = g.capture_step(acc, xy, cap, jkf, src, k_prev)
+        k_prev = k
+    _, cap = g.capture_step(acc, None, cap, jkf, src, k_prev, add=False)
+    return (tuple(x.reshape(cs + lead + (T,)) for x in cap),
+            tuple(x.reshape(cs + lead + (C,)) for x in acc))
 
 
 def reduce_points(g: CurveDevice, pts: Point) -> Point:

@@ -37,9 +37,10 @@ _LIBS: Dict[str, Tuple[str, Tuple[str, ...]]] = {
 # digits) call the Montgomery product instead of inlining it
 # (csrc/field.cuh: G16_OUTLINE_MUL): inlined, an L = 26 one-thread kernel
 # on digits took ptxas 12-15 minutes.  The group forms (K4, K5, K7) and the
-# Horner kernel inline it at every L (each has one call site; the
+# scalar multiplication inline it at every L (each has one call site; the
 # generic-a law over Fq2 with |nr| > 16 has a second, its product by the
-# nonresidue).
+# nonresidue).  The Horner kernel and the generic-a word kernel inline
+# the word product (L = 21 and one call site a program step).
 OUTLINE_MUL_MIN_LIMBS = 26
 # From this many digits on, K6 (one thread a point on 32-bit words) calls
 # its word product instead of inlining its 13 copies (csrc/field.cuh:
@@ -55,9 +56,10 @@ def _formula_defines(n_limbs: int, deg: int, nr: int) -> Tuple[str, ...]:
 def point_add_variant(n_limbs: int, deg: int, mixed: bool, nr: int = 0, general: bool = False) -> str:
     """Library of one point-add kernel: G1 over Fq (deg 1, L digits) or G2
     over Fq2 = Fq[u]/(u^2 - nr) (deg 2) or Fq3 = Fq[v]/(v^3 - nr) (deg 3),
-    full (K4/K5) or mixed (K6/K7); `general`: the full addition's
-    generic-a law (MNT's a != 0, its value a row of the constant table,
-    so one G1 library serves MNT4 and MNT6)."""
+    full (K4/K5, and the scalar multiplication) or mixed (K6/K7);
+    `general`: the scalar multiplication's generic-a law alone (MNT's
+    a != 0, its value a row of the constant table, so one G1 library
+    serves MNT4 and MNT6)."""
     if deg == 1:
         nr = 0  # the G1 kernels never read it: one library for every curve
     name = f"point_add_L{n_limbs}_d{deg}_{'mixed' if mixed else 'full'}_nr{nr}".replace("-", "m")
@@ -68,6 +70,27 @@ def point_add_variant(n_limbs: int, deg: int, mixed: bool, nr: int = 0, general:
     if mixed and deg == 1 and n_limbs >= OUTLINE_MUL_W_MIN_LIMBS:
         defines += ("-DG16_OUTLINE_MUL_W",)
     _LIBS.setdefault(name, ("point_add.cu", defines))
+    return name
+
+
+def general_add_variant(n_limbs: int, deg: int, nr: int = 0) -> str:
+    """Library of the generic-a group kernel (csrc/general_add.cu: the
+    full addition and the capture step of MNT's a != 0) over Fq (deg 1),
+    Fq2 or Fq3 with the nonresidue nr; a and b3 are launch constants, so
+    one G1 library serves MNT4 and MNT6."""
+    if deg == 1:
+        nr = 0
+    name = f"general_add_L{n_limbs}_d{deg}_nr{nr}".replace("-", "m")
+    _LIBS.setdefault(name, ("general_add.cu", _formula_defines(n_limbs, deg, nr)))
+    return name
+
+
+def horner_variant(n_limbs: int) -> str:
+    """Library of the Horner kernel (csrc/horner.cu) at L digits: it
+    interprets the formula programs of curves/formulas.py, so one
+    library serves every law, field degree and nonresidue at that L."""
+    name = f"horner_L{n_limbs}"
+    _LIBS.setdefault(name, ("horner.cu", (f"-DG16_LIMBS={n_limbs}",)))
     return name
 
 
@@ -86,28 +109,30 @@ def suffix_scan_variant(n_limbs: int, deg: int, nr: int = 0) -> str:
 
 def curve_variants(c) -> list:
     """Every library the prove and the device setup of curve c (a
-    CurveParams) load: K1, the full and the mixed point additions and the
-    suffix scan over Fq (G1), and, where G2 lies over Fq2 (BN, BLS12), the
-    same three over Fq2 with the curve's nonresidue.  Where G2 lies over
-    Fq itself (BW6-761) it runs G1's libraries with its own b3 (a row of
-    the constant table), so nothing over Fq2 is built.  Where a != 0
+    CurveParams) load: K1, the Horner kernel at Fq's L, the full and the
+    mixed point additions and the suffix scan over Fq (G1), and, where G2
+    lies over Fq2 (BN, BLS12), the same three over Fq2 with the curve's
+    nonresidue.  Where G2 lies over Fq itself (BW6-761) it runs G1's
+    libraries with its own b3, so nothing over Fq2 is built.  Where a != 0
     (MNT4, MNT6) the prove takes the capture scan on the full addition,
-    as the JAX package does: K1 and the generic-a full additions over Fq
-    and over G2's Fq2 (MNT4) or Fq3 (MNT6), no mixed addition and no
-    scan."""
+    as the JAX package does: K1, Horner, the generic-a group kernel and
+    the scalar multiplication's generic-a library over Fq and over G2's
+    Fq2 (MNT4) or Fq3 (MNT6), no mixed addition and no scan."""
     from groth16_tpu_torch.fields.spec import make_spec
 
     n_limbs = make_spec(c.p).n_limbs
     if c.a % c.p:
         deg2, nr = c.g2_field_degree, c.fp2_nonresidue
-        return ["mont_mul", point_add_variant(n_limbs, 1, False, 0, True),
+        return ["mont_mul", horner_variant(n_limbs),
+                general_add_variant(n_limbs, 1), general_add_variant(n_limbs, deg2, nr),
+                point_add_variant(n_limbs, 1, False, 0, True),
                 point_add_variant(n_limbs, deg2, False, nr, True)]
     if c.g2_over_base:
         degs, nr = (1,), 0
     else:
         degs, nr = (1, 2), c.fp2_nonresidue
     return (
-        ["mont_mul"]
+        ["mont_mul", horner_variant(n_limbs)]
         + [point_add_variant(n_limbs, deg, mixed, nr) for deg in degs for mixed in (False, True)]
         + [suffix_scan_variant(n_limbs, deg, nr) for deg in degs]
     )

@@ -6,7 +6,9 @@ digits for its 761-bit Fq, L = 26 for its 377-bit Fr).
   engine's steps at L = 52 (tests/test_torch_fp.py's model: 24 words, 24
   full steps and a 12-bit one) give the plain version's digits;
   `curve_variants` builds BW6-761's four L = 52 libraries over Fq and
-  none over Fq2 (and MNT6-298's K1 and generic-a full additions).
+  its Horner library, none over Fq2 (and MNT6-298's K1, Horner, the
+  generic-a group kernel and the scalar multiplication's generic-a
+  libraries).
 - Points: G1 and G2 (both over Fq, each with its own b3) full and mixed
   additions give the exact engine's sums (P + P, P + (-P) and infinity
   lanes included), and K6's word steps (tests/test_torch_k6.py's
@@ -92,13 +94,17 @@ def test_bw6_field_engine_and_libraries():
     assert [_words_model((a[:, i], b[:, i]), p, L) for i in range(a.shape[1])] == plain.numpy().T.tolist()
     # the libraries its prove and setup load: L = 52 over Fq, none over Fq2
     assert curve_variants(tget_curve(CURVE)) == [
-        "mont_mul", "point_add_L52_d1_full_nr0", "point_add_L52_d1_mixed_nr0", "suffix_scan_L52_d1_nr0"]
+        "mont_mul", "horner_L52", "point_add_L52_d1_full_nr0", "point_add_L52_d1_mixed_nr0",
+        "suffix_scan_L52_d1_nr0"]
     assert curve_variants(tget_curve("bls12_377")) == [
-        "mont_mul", "point_add_L26_d1_full_nr0", "point_add_L26_d1_mixed_nr0", "point_add_L26_d2_full_nrm5",
-        "point_add_L26_d2_mixed_nrm5", "suffix_scan_L26_d1_nr0", "suffix_scan_L26_d2_nrm5"]
-    # a != 0 (MNT): K1 and the generic-a full additions, over Fq and G2's Fq3
+        "mont_mul", "horner_L26", "point_add_L26_d1_full_nr0", "point_add_L26_d1_mixed_nr0",
+        "point_add_L26_d2_full_nrm5", "point_add_L26_d2_mixed_nrm5", "suffix_scan_L26_d1_nr0",
+        "suffix_scan_L26_d2_nrm5"]
+    # a != 0 (MNT): K1, Horner, the generic-a group kernel and the scalar
+    # multiplication's generic-a libraries, over Fq and G2's Fq3
     assert curve_variants(tget_curve("mnt6_298")) == [
-        "mont_mul", "point_add_L21_d1_full_nr0_ga", "point_add_L21_d3_full_nr5_ga"]
+        "mont_mul", "horner_L21", "general_add_L21_d1_nr0", "general_add_L21_d3_nr5",
+        "point_add_L21_d1_full_nr0_ga", "point_add_L21_d3_full_nr5_ga"]
 
 
 def test_bw6_point_additions_and_k6_words():

@@ -2,8 +2,8 @@
 the card: K1 (mont_mul), K4-K7 (point additions), the Horner kernel,
 K2/K3 (the MSM suffix scans), V (the op-rate microbenchmark) and the
 scalar multiplication, the generic-a forms of the full addition, Horner
-and the scalar multiplication (MNT4-298, MNT6-298: over Fq, Fq2 and Fq3)
-and the MNT proves, then batch inversion and to_affine, a small prove
+and the scalar multiplication (MNT4-298, MNT6-298: over Fq, Fq2 and Fq3),
+the generic-a group kernel's capture step, and the MNT proves, then batch inversion and to_affine, a small prove
 through every kernel, on each MSM scan path, against the exact prover, a
 small device setup against the exact setup, and a small batch and device
 assembly against the exact prover.
@@ -441,7 +441,8 @@ def test_prover_on_the_card_matches_the_exact_prover(dev, fused):
     scans = ("suffix_scan_g1", "suffix_scan_g2")
     mixed = ("add_mixed_g1", "add_mixed_g2")
     device_assembly = ("scalar_mul_g1", "scalar_mul_g2")  # host assembly here
-    used = [k for k in counters if k not in (mixed if fused else scans) + device_assembly]
+    generic_a = ("capture_step_g1", "capture_step_g2")  # a != 0 only
+    used = [k for k in counters if k not in (mixed if fused else scans) + device_assembly + generic_a]
     with configure(msm_fused_scan=fused):
         got = prover.prove(cs.full_assignment(), r, s)
     after = {**cuda_fp.LAUNCHES, **cuda_point.LAUNCHES, **cuda_scan.LAUNCHES}
@@ -658,6 +659,48 @@ def test_generic_a_kernels_match_plain(dev, curve, group):
         assert torch.equal(x.cpu(), y)
 
 
+@pytest.mark.parametrize("curve,group", [("mnt4_298", "g1"), ("mnt4_298", "g2"), ("mnt6_298", "g2")])
+def test_generic_a_capture_step_matches_plain(dev, curve, group):
+    """The generic-a group kernel's capture step (acc + an affine row,
+    infinity (0, 0), and cap[t] = acc[src[t]] where jk[t] == k_prev) at 1,
+    33 and 4,101 points with 700 targets, and the capture alone, digit
+    for digit against capture_step_plain, one launch each, counted as a
+    generic-a capture step; the sums also against the exact engine."""
+    cv = get_curve(curve)
+    g2 = group == "g2"
+    g = (codec.g2_ops if g2 else codec.g1_ops)(cv)
+    k = g.k
+    D = k.tower_deg
+    ops = cuda_point.plain_ops(k)
+    to_dev = codec.g2_to_device if g2 else codec.g1_to_device
+    dec = codec.g2_from_device if g2 else codec.g1_from_device
+    lhs, rhs, add = _batches(curve, g2, 4101, seed=23)
+    acc = tuple(x.to(dev) for x in g.add(*(to_dev(cv, x, "cpu") for x in (lhs, lhs))))  # 2 lhs, Z != 1
+    x2, y2, _ = g.to_affine(to_dev(cv, rhs, dev))
+    rng = np.random.default_rng(D)
+    name = f"capture_step_g{min(D, 2)}"
+    for n in (1, 33, 4101):
+        a = tuple(x[..., -n:].contiguous() for x in acc)
+        xy = tuple(x[..., -n:].contiguous() for x in (x2, y2))
+        T = 700
+        jk = torch.from_numpy(rng.integers(0, 3, T, dtype=np.int32)).to(dev)
+        src = torch.from_numpy(rng.integers(0, n, T, dtype=np.int32)).to(dev)
+        cap0 = g.infinity((T,), device=dev)
+        for add_row in (True, False):
+            cap = tuple(x.clone() for x in cap0)
+            before = (cuda_point.LAUNCHES[name], cuda_point.GENERAL_A_LAUNCHES[f"capture_step_d{D}"])
+            got = g.capture_step(a, xy, cap, jk, src, 1, add=add_row)
+            torch.cuda.synchronize()
+            after = (cuda_point.LAUNCHES[name], cuda_point.GENERAL_A_LAUNCHES[f"capture_step_d{D}"])
+            assert after == (before[0] + 1, before[1] + 1)
+            want = cuda_point.capture_step_plain(ops, g.b3_val, g.a_val, a, xy, cap0, jk, src, 1, add=add_row)
+            for x, y in zip(list(got[0]) + list(got[1]), list(want[0]) + list(want[1])):
+                assert torch.equal(x, y)
+            if add_row:
+                sums = got[0]
+    assert dec(cv, g, sums) == [add(add(x, x), y) for x, y in zip(lhs[-n:], rhs[-n:])]
+
+
 @pytest.mark.parametrize("curve", ["mnt4_298", "mnt6_298"])
 def test_mnt_prove_on_the_card_matches_the_exact_prover(dev, curve):
     """The 2^6 DummyCircuit of MNT4-298 and MNT6-298 proved by TorchProver
@@ -685,7 +728,8 @@ def test_mnt_prove_on_the_card_matches_the_exact_prover(dev, curve):
     got = [prover.prove(cs.full_assignment(), r, s), prover.prove(cs.full_assignment(), r, s, host_assembly=False)]
     after = {**cuda_fp.LAUNCHES, **cuda_point.LAUNCHES, **cuda_scan.LAUNCHES}
     ran = {k for k in after if after[k] > before[k]}
-    assert {"mont_mul", "add_g1", "add_g2", "horner_g1", "horner_g2", "scalar_mul_g1", "scalar_mul_g2"} <= ran
+    assert {"mont_mul", "add_g1", "add_g2", "horner_g1", "horner_g2", "scalar_mul_g1", "scalar_mul_g2",
+            "capture_step_g1", "capture_step_g2"} <= ran
     assert not ran & {"add_mixed_g1", "add_mixed_g2", "suffix_scan_g1", "suffix_scan_g2"}
     assert cuda_fp.LAUNCH_SIZES["mont_mul"]["L21"] > l21
     want = create_proof_with_reduction(DummyCircuit(nvar, ncon, a=3, b=5), pk, r, s)

@@ -4,10 +4,12 @@ RCB algorithm 1) of the port, on the CPU (every kernel's plain version):
 G2 (Fq2, nonresidue 17) and MNT6's G2 (Fq3) against the exact engine
 `groth16_tpu.ref` (RefGroups), with infinity, P + P and P + (-P) lanes,
 compared after conversion to affine (tolerance: equal points mod p); and
-one batch of `add` against the JAX package's `CurveDevice._add_general`
-(digit-for-digit: the port's plain version is its transcription).  Three
-cases, so pytest-xdist's --dist loadfile hands the file out after
-tests/test_gadget.py."""
+one batch of `add` against the JAX package's `CurveDevice._add_general`,
+coordinate for coordinate mod p (the port's plain version runs the
+generic-a group kernel's order of the same formula, curves/formulas.py,
+so each coordinate is the same field element in another representative
+below 2p).  Three cases, so pytest-xdist's --dist loadfile hands the file
+out after tests/test_gadget.py."""
 
 import random
 
@@ -20,6 +22,7 @@ from groth16_tpu.curves.params import get_curve as jget_curve
 from groth16_tpu.ref.curve import RefGroups
 from groth16_tpu_torch.curves import codec
 from groth16_tpu_torch.curves.params import get_curve
+from groth16_tpu_torch.fields import fp
 
 torch.set_num_threads(1)
 
@@ -76,7 +79,8 @@ def test_generic_a_add_matches_jax_add_general():
     """One batch of the port's generic-a `add` against the JAX package's
     `CurveDevice._add_general` on MNT4-298's G1 and G2 (Fq2 with the
     nonresidue 17, whose c0 takes a product by the nonresidue) and
-    MNT6-298's G2 (Fq3), digit for digit."""
+    MNT6-298's G2 (Fq3), coordinate for coordinate mod p (both < 2p,
+    reduced to [0, p) and compared digit for digit)."""
     for curve, group in (("mnt4_298", "g1"), ("mnt4_298", "g2"), ("mnt6_298", "g2")):
         c, jc, ref = get_curve(curve), jget_curve(curve), RefGroups(curve)
         g = (codec.g2_ops if group == "g2" else codec.g1_ops)(c)
@@ -88,4 +92,6 @@ def test_generic_a_add_matches_jax_add_general():
         got = g.add(p1, p2)
         want = jg._add_general(*(tuple(np.asarray(x).astype(np.uint32) for x in pt) for pt in (p1, p2)))
         for x, y in zip(got, want):
-            np.testing.assert_array_equal(x.numpy().astype(np.uint32), np.asarray(y))
+            y = torch.from_numpy(np.asarray(y).astype(np.int32))
+            np.testing.assert_array_equal(fp.normalize(g.k.spec, x, bound_k=2).numpy(),
+                                          fp.normalize(g.k.spec, y, bound_k=2).numpy())
