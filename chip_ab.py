@@ -3,7 +3,7 @@
 same card, in turns.
 
     git archive <commit> | tar -x -C scratch/parent
-    python3 chip_ab.py --other scratch/parent
+    python3 chip_ab.py --other scratch/parent [--only GROUP,GROUP,...]
 
 Starts one worker process per checkout (each imports `groth16_tpu_torch`
 from its own root and builds its own kernels), has both set up the same
@@ -39,8 +39,24 @@ package's public functions, so each checkout runs its own path):
   profile log_n  one steady prove under torch.profiler (the card's events
                  alone): device time by kernel name, the launches and the
                  busy share, in turns (also on the capture scan, K6/K7, at
-                 both sizes; mnt6_298 2^20 takes the capture scan).
+                 both sizes; mnt6_298 2^20 takes the capture scan);
+  scalar_mul     CurveDevice.scalar_mul_bits at the device assembly's three
+                 shapes (G1 [r, s, rs] and [s, r], G2 s at the curve
+                 order's width) on bn254, bls12_381, bw6_761, mnt4_298 and
+                 mnt6_298, queued; then, on this checkout alone, the
+                 scalar-multiplication kernel at each window width c of
+                 SCALAR_MUL_WINDOWS at the same shapes (its points equal
+                 at every c);
+  assembly       the device assembly (prover_torch.assembly_phase) of
+                 fixed accumulators beside the host assembly (_assemble)
+                 of the same ones, host clock around a device sync, on
+                 the bn254 and bw6_761 2^16 keys; each device proof must
+                 equal the host one.
 
+Groups of measurements, in the order they run (GROUPS; --only picks some):
+k1, mixed16 (K6/K7 at 2^16 and the SASS), prove16 (proves and profiles),
+mixed20, prove20, general, horner, mnt6 (its 2^20 prove and profile),
+scalar_mul, assembly.  The keys a group needs are set up on first use.
 One JSON line per measurement and worker, then the card's name and power
 limit.  Needs one CUDA card and nvcc; exits non-zero without them.
 """
@@ -72,10 +88,17 @@ PROVES, PROVE_ROUNDS = 4, 3
 # (G1 466,944, its widest launch before the capture step), and 2^16
 GENERAL_N = {("mnt4_298", "g1"): (1 << 16, 466944), ("mnt6_298", "g1"): (1 << 16, 86016),
              ("mnt4_298", "g2"): (1 << 16,), ("mnt6_298", "g2"): (28672, 1 << 16)}
-# the keys set up for the Horner shapes and the mnt6_298 prove: (name,
-# curve, log_n, device setup, seed); bn254 and bls12_381 are the k1/prove
-# keys above
-EXTRA_KEYS = (("bw6_761_16", "bw6_761", 16, True, 0xB6), ("mnt6_298_20", "mnt6_298", 20, True, 0x6A))
+# the proving keys, set up on first use: name (log_n for the bn254 2^16
+# and bls12_381 2^20 proves') -> (curve, log_n, device setup, seed)
+KEYS = {16: ("bn254", 16, False, 0xBE7C), 20: ("bls12_381", 20, True, 0xB15),
+        "bw6_761_16": ("bw6_761", 16, True, 0xB6), "mnt6_298_20": ("mnt6_298", 20, True, 0x6A)}
+GROUPS = ("k1", "mixed16", "prove16", "mixed20", "prove20", "general", "horner", "mnt6", "scalar_mul", "assembly")
+# the scalar multiplication's curves, and the window widths swept on this
+# checkout
+SCALAR_MUL_CURVES = ("bn254", "bls12_381", "bw6_761", "mnt4_298", "mnt6_298")
+SCALAR_MUL_WINDOWS = (1, 2, 3, 4, 5)
+ASSEMBLY_KEYS = (16, "bw6_761_16")
+ASSEMBLY_REPS = 5
 
 
 # -- worker ----------------------------------------------------------------------
@@ -238,6 +261,89 @@ class Worker:
                         "ms_per_chain_addition": ms / (W * (plan.c + 1))})
         return {"shapes": out}
 
+    def _assembly_shapes(self, curve, seed):
+        """(group, label, bits) of the device assembly's scalar
+        multiplications for a random r and s at the curve order's width."""
+        import random
+
+        from groth16_tpu_torch.curves.params import get_curve
+        from groth16_tpu_torch.protocol.prover_torch import scalar_bits
+
+        c = get_curve(curve)
+        r = random.Random(seed)
+        a, b = r.randrange(1, c.r), r.randrange(1, c.r)
+        bits = scalar_bits([a, b, a * b % c.r], self.dev)
+        bits = self.torch.nn.functional.pad(bits, (0, c.r.bit_length() - bits.shape[1]))
+        return [("g1", "[r, s, rs]", bits), ("g1", "[s, r]", self.torch.stack([bits[1], bits[0]])),
+                ("g2", "s", bits[1:2].contiguous())]
+
+    def scalar_mul(self, curve, seed=0x5CA1):
+        """CurveDevice.scalar_mul_bits at the assembly's shapes, queued."""
+        out = []
+        for group, label, bits in self._assembly_shapes(curve, seed):
+            g, p1, _ = self._points(curve, group, bits.shape[0] + 4, seed=11)
+            p1 = tuple(x[..., 4:].contiguous() for x in p1)  # past the special lanes
+            ms = queued_ms(lambda: g.scalar_mul_bits(p1, bits))
+            out.append({"group": group, "shape": label, "lanes": bits.shape[0], "nbits": bits.shape[1], "ms": ms})
+        return {"curve": curve, "shapes": out}
+
+    def scalar_mul_windows(self, curve, windows, seed=0x5CA1):
+        """The scalar multiplication at each window width c at the
+        assembly's shapes (cuda_point.SCALAR_MUL_WINDOW set to c, then
+        restored), queued; its points (decoded on the host) must be equal
+        at every c."""
+        from groth16_tpu_torch.curves import codec, cuda_point
+        from groth16_tpu_torch.curves.params import get_curve
+
+        c = get_curve(curve)
+        chosen = cuda_point.SCALAR_MUL_WINDOW
+        out = []
+        try:
+            for group, label, bits in self._assembly_shapes(curve, seed):
+                g, p1, _ = self._points(curve, group, bits.shape[0] + 4, seed=11)
+                p1 = tuple(x[..., 4:].contiguous() for x in p1)  # past the special lanes
+                dec = codec.g2_from_device if group == "g2" else codec.g1_from_device
+                points, ms = {}, {}
+                for w in windows:
+                    cuda_point.SCALAR_MUL_WINDOW = w
+                    points[w] = dec(c, g, g.scalar_mul_bits(p1, bits))
+                    ms[w] = queued_ms(lambda: g.scalar_mul_bits(p1, bits))
+                if any(v != points[windows[0]] for v in points.values()):
+                    raise AssertionError(f"{curve} {group} {label}: the points differ between window widths")
+                out.append({"group": group, "shape": label, "lanes": bits.shape[0], "nbits": bits.shape[1],
+                            "ms_by_c": ms})
+        finally:
+            cuda_point.SCALAR_MUL_WINDOW = chosen
+        return {"curve": curve, "shapes": out}
+
+    def assembly(self, key, reps):
+        """The device assembly and the host assembly of one prove's
+        accumulators, reps times each with fresh r and s (host clock,
+        device synchronised); the proofs must be equal."""
+        from groth16_tpu_torch.protocol import prover_torch as pt
+
+        torch = self.torch
+        c, prover, z_enc, rng = self.keys[key]
+        acc4, b2 = pt.msm_phases(prover.dpk, z_enc)
+        device_s, host_s = [], []
+        for i in range(reps + 1):  # the first round warms up
+            r, s = rng.field_element(c.r), rng.field_element(c.r)
+            bits = pt.scalar_bits([r, s, r * s % c.r], prover.device)
+            torch.cuda.synchronize()
+            t0 = time.time()
+            out = pt.assembly_phase(prover.dpk, acc4, b2, bits)
+            torch.cuda.synchronize()
+            t1 = time.time()
+            host = prover._assemble(acc4, b2, r, s)
+            t2 = time.time()
+            dev = pt.decode_proof_arrays(prover.curve, out)
+            if (dev.a, dev.b, dev.c) != (host.a, host.b, host.c):
+                raise AssertionError(f"{key}: the device assembly differs from the host assembly")
+            if i:
+                device_s.append(t1 - t0)
+                host_s.append(t2 - t1)
+        return {"device_assembly_s": device_s, "host_assembly_s": host_s}
+
     def k1(self, L, log_n, h):
         import numpy as np
 
@@ -326,6 +432,7 @@ def smi(query):
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--other", help="root of the checkout to compare with")
+    ap.add_argument("--only", default=",".join(GROUPS), help="comma-separated groups of measurements (GROUPS)")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.worker:
@@ -333,6 +440,9 @@ def main():
         return 0
     if not args.other:
         ap.error("--other is required")
+    only = set(args.only.split(","))
+    if not only <= set(GROUPS):
+        ap.error(f"unknown groups {sorted(only - set(GROUPS))}; have {GROUPS}")
     import torch
 
     if not torch.cuda.is_available():
@@ -368,48 +478,75 @@ def main():
             out[who].append(recv(who))
         print(json.dumps({"measure": cmd, **out}), flush=True)
 
+    keys = set()
+
+    def need(key):  # set a key up in both workers on first use
+        if key not in keys:
+            curve, log_n, device_setup, seed = KEYS[key]
+            both(op="setup", curve=curve, log_n=log_n, device_setup=device_setup, seed=seed,
+                 name=None if isinstance(key, int) else key)
+            keys.add(key)
+
     try:
         print(smi("name,power.limit"), flush=True)
         both(op="build")
-        both(op="setup", curve="bn254", log_n=16, device_setup=False, seed=0xBE7C)
-        for L, log_n, h in K1_CASES:
-            turns(op="k1", L=L, log_n=log_n, h=h)
-        for n in K7_N:
-            turns(op="mixed", g2=True, n=n)
-        for n in K6_N:
-            turns(op="mixed", g2=False, n=n)
-        for who in ("other", "this"):
-            send(who, op="sass", variants=SASS_LIBS)
-            print(json.dumps({"sass": who, **recv(who)}), flush=True)
-        for _ in range(PROVE_ROUNDS):
-            turns(op="prove", log_n=16, k=PROVES)
-        for fused in (True, False):
+        if "k1" in only:
+            for L, log_n, h in K1_CASES:
+                turns(op="k1", L=L, log_n=log_n, h=h)
+        if "mixed16" in only:
+            need(16)
+            for n in K7_N:
+                turns(op="mixed", g2=True, n=n)
+            for n in K6_N:
+                turns(op="mixed", g2=False, n=n)
+            for who in ("other", "this"):
+                send(who, op="sass", variants=SASS_LIBS)
+                print(json.dumps({"sass": who, **recv(who)}), flush=True)
+        if "prove16" in only:
+            need(16)
+            for _ in range(PROVE_ROUNDS):
+                turns(op="prove", log_n=16, k=PROVES)
+            for fused in (True, False):
+                for who in ("other", "this", "this", "other"):
+                    send(who, op="profile", log_n=16, fused=fused)
+                    print(json.dumps({"profile16": who, "fused": fused, **recv(who)}), flush=True)
+        if "mixed20" in only:
+            need(20)
+            for n in K6_N:
+                turns(op="mixed", g2=False, n=n, log_n=20)
+        if "prove20" in only:
+            need(20)
+            for _ in range(PROVE_ROUNDS):
+                turns(op="prove", log_n=20, k=PROVES // 2)
+            for fused in (True, False):
+                for who in ("other", "this", "this", "other"):
+                    send(who, op="profile", log_n=20, fused=fused)
+                    print(json.dumps({"profile20": who, "fused": fused, **recv(who)}), flush=True)
+        if "general" in only:
+            for (curve, group), ns in GENERAL_N.items():
+                for n in ns:
+                    turns(op="general", curve=curve, group=group, n=n)
+        if "horner" in only:
+            for key in KEYS:
+                need(key)
+                turns(op="horner", key=key)
+        if "mnt6" in only:
+            need("mnt6_298_20")
+            for _ in range(PROVE_ROUNDS):
+                turns(op="prove", log_n="mnt6_298_20", k=PROVES // 2)
             for who in ("other", "this", "this", "other"):
-                send(who, op="profile", log_n=16, fused=fused)
-                print(json.dumps({"profile16": who, "fused": fused, **recv(who)}), flush=True)
-        both(op="setup", curve="bls12_381", log_n=20, device_setup=True, seed=0xB15)
-        for n in K6_N:
-            turns(op="mixed", g2=False, n=n, log_n=20)
-        for _ in range(PROVE_ROUNDS):
-            turns(op="prove", log_n=20, k=PROVES // 2)
-        for fused in (True, False):
-            for who in ("other", "this", "this", "other"):
-                send(who, op="profile", log_n=20, fused=fused)
-                print(json.dumps({"profile20": who, "fused": fused, **recv(who)}), flush=True)
-        # the generic-a kernel, Horner at every prove's shapes, the mnt6_298
-        # 2^20 prove
-        for (curve, group), ns in GENERAL_N.items():
-            for n in ns:
-                turns(op="general", curve=curve, group=group, n=n)
-        for name, curve, log_n, device_setup, seed in EXTRA_KEYS:
-            both(op="setup", curve=curve, log_n=log_n, device_setup=device_setup, seed=seed, name=name)
-        for key in (16, 20) + tuple(name for name, *_ in EXTRA_KEYS):
-            turns(op="horner", key=key)
-        for _ in range(PROVE_ROUNDS):
-            turns(op="prove", log_n="mnt6_298_20", k=PROVES // 2)
-        for who in ("other", "this", "this", "other"):
-            send(who, op="profile", log_n="mnt6_298_20")
-            print(json.dumps({"profile_mnt6_20": who, **recv(who)}), flush=True)
+                send(who, op="profile", log_n="mnt6_298_20")
+                print(json.dumps({"profile_mnt6_20": who, **recv(who)}), flush=True)
+        if "scalar_mul" in only:
+            for curve in SCALAR_MUL_CURVES:
+                turns(op="scalar_mul", curve=curve)
+            for curve in SCALAR_MUL_CURVES:
+                send("this", op="scalar_mul_windows", curve=curve, windows=SCALAR_MUL_WINDOWS)
+                print(json.dumps({"scalar_mul_windows": "this", **recv("this")}), flush=True)
+        if "assembly" in only:
+            for key in ASSEMBLY_KEYS:
+                need(key)
+                turns(op="assembly", key=key, reps=ASSEMBLY_REPS)
         print(smi("name,power.limit"), flush=True)
     finally:
         for p in procs.values():

@@ -49,8 +49,11 @@ Phases, each printing one JSON line:
             points in rounds of turns; the scalar multiplication of the
             device assembly at its shapes (3 and 2 G1 lanes, 1 G2 lane, the
             curve order's bits) and at 33 and 4,101 lanes of 64 bits (a
-            lane of zeros, one of ones, the others random), each timed
-            and its time a chain addition printed beside Horner's (the
+            lane of zeros, one of ones, one whose point is infinity, the
+            others random), each timed beside its bound (its programs'
+            products along the chain) and its time a chain op (the
+            window table's steps, the doublings and the additions of the
+            longest lane) printed beside Horner's a chain addition (the
             plain versions of Horner and of the scalar multiplication at
             up to 8 lanes run on CPU copies of the same inputs);
   reference the prove of a 2^6 DummyCircuit on the card against the exact
@@ -375,20 +378,20 @@ def phase_card():
         for n, r in reports.items() if n == "mont_mul" or "_mixed_" in n
         for k, v in ptxas_summary(r["ptxas"]).items()
     }})
-    # the scalar multiplication and Horner (csrc/horner.cu, one library an L)
+    # the scalar multiplication and Horner (csrc/horner.cu, both kernels in
+    # one library an L)
     emit({"phase": "card", "scalar_mul_horner_ptxas": {
         f"{n}: {kernel_name(k)}": v
-        for n, r in reports.items() if "_full_" in n or n.startswith("horner_")
-        for k, v in ptxas_summary(r["ptxas"]).items() if "scalar_mul" in k or "horner" in k
+        for n, r in reports.items() if n.startswith("horner_")
+        for k, v in ptxas_summary(r["ptxas"]).items()
     }})
     # the L = 21 libraries of MNT4-298 and MNT6-298: K1's L = 21 instances
     # are in the mont_mul line above; the generic-a group kernel
-    # (csrc/general_add.cu, its projective and capture-step forms) and the
-    # scalar multiplication's generic-a body over Fq, Fq2 (NR = 17) and
-    # Fq3 (NR = 5)
+    # (csrc/general_add.cu, its projective and capture-step forms) over Fq,
+    # Fq2 (NR = 17) and Fq3 (NR = 5)
     emit({"phase": "card", "generic_a_ptxas": {
         f"{n}: {kernel_name(k)}": v
-        for n, r in reports.items() if n.endswith("_ga") or n.startswith("general_add_")
+        for n, r in reports.items() if n.startswith("general_add_")
         for k, v in ptxas_summary(r["ptxas"]).items()
     }})
 
@@ -1121,42 +1124,48 @@ def _capture_step_kernels(dpk, c, device, widths):
 
 # lanes at which the scalar multiplication is checked and timed beside the
 # device assembly's own shapes, and their bits: random, with a lane of
-# zeros and a lane of ones, so one warp's lanes take different bits (64 of
-# them: the plain version's run takes seconds at the curve order's width)
+# zeros and a lane of ones (64 of them, a multiple of every window width
+# measured but 3 and 5: the plain version's run takes seconds at the
+# curve order's width)
 SCALAR_MUL_LANES = (33, 4101)
 SCALAR_MUL_LANE_BITS = 64
 
 
 def _scalar_mul_kernels(src_of, c, device, horner, seed, extra_lanes=SCALAR_MUL_LANES):
     """The scalar-multiplication kernel against its plain version (the
-    select loop of additions it replaces, on the card), digit for digit:
-    at the device assembly's shapes, G1 [r, s, rs] (3 lanes) and [s, r]
-    (2 lanes) and G2 s (1 lane), with a random r and s (the curve order's
-    width, its top bits zero where the scalars are shorter), and at
-    `extra_lanes` lanes of SCALAR_MUL_LANE_BITS bits (lane 2
-    infinity); each timed
-    (queued_ms) beside its bound, and its time a chain addition (the
-    launch's sequential additions) beside Horner's (`horner`: this
-    curve's Horner entries).  src_of(g): the points the inputs come from.
-    The plain version runs on CPU copies of the inputs up to
+    same windows on the same programs, on the CPU or the card), digit for
+    digit: at the device assembly's shapes, G1 [r, s, rs] (3 lanes) and
+    [s, r] (2 lanes) and G2 s (1 lane), with a random r and s (the curve
+    order's width, its top bits zero where the scalars are shorter), and
+    at `extra_lanes` lanes of SCALAR_MUL_LANE_BITS bits (lane 2 infinity);
+    each timed (queued_ms) beside its bound (its programs' products along
+    the chain: latency-bound, as Horner), and its time a chain op (the
+    table's steps, the doublings and the additions of the longest lane)
+    beside Horner's time a chain addition for the same group (`horner`:
+    this curve's Horner entries).  src_of(g): the points the inputs come
+    from.  The plain version runs on CPU copies of the inputs up to
     PLAIN_CPU_MAX_LANES lanes (plain_run), on the card past them.  Returns
     the kernels-line entries (the 3-lane G1 and the G2 shapes)."""
     import numpy as np
     import torch
 
-    from groth16_tpu_torch.curves import codec, cuda_point
+    from groth16_tpu_torch.curves import codec, cuda_point, formulas
     from groth16_tpu_torch.fields.spec import make_spec
     from groth16_tpu_torch.protocol.prover_torch import scalar_bits
+    from groth16_tpu_torch.utils import profiling as pf
 
     rng = np.random.default_rng(seed)
     r, s = (int.from_bytes(rng.bytes(40), "little") % c.r for _ in range(2))
     asm = scalar_bits([r, s, r * s % c.r], device)
     asm = torch.nn.functional.pad(asm, (0, c.r.bit_length() - asm.shape[1]))
     L = make_spec(c.p).n_limbs
+    window = cuda_point.SCALAR_MUL_WINDOW
     entries = {}
     for name, g in (("scalar_mul_g1", codec.g1_ops(c)), ("scalar_mul_g2", codec.g2_ops(c))):
         D = g.k.tower_deg
         plain_ops = cuda_point.plain_ops(g.k)
+        dbl, add = formulas.programs(g.k.spec, D, getattr(g.k, "nr_int", 0), g.a_val, g.b3_val)
+        horner_op = horner[name.replace("scalar_mul", "horner")]["ms_per_chain_addition"]
         src = src_of(g)
         finite = torch.nonzero(~g.is_infinity(src)).reshape(-1)
         shapes = [("assembly [r, s, rs]", asm), ("assembly [s, r]", torch.stack([asm[1], asm[0]]))]
@@ -1184,23 +1193,30 @@ def _scalar_mul_kernels(src_of, c, device, horner, seed, extra_lanes=SCALAR_MUL_
             if not all(torch.equal(x, y) for x, y in zip(got, want)):
                 raise AssertionError(f"{name} on {c.name} ({label}, {nbits} bits): kernel and plain version disagree")
             ms, _ = queued_ms(run)
-            # the additions the data needs: one a set bit, and a doubling a
-            # bit but the last; the launch's chain: the doublings and the
-            # bits any lane takes
-            adds = int(bits.sum()) + lanes * (nbits - 1)
-            chain = nbits - 1 + int(bits.any(dim=0).sum())
-            row = {"kernel": name, "curve": c.name, "shape": label, "lanes": lanes, "nbits": nbits,
+            # the steps the data needs (each lane's table, doublings and
+            # additions) and the launch's chain: the longest lane's steps
+            steps = pf.scalar_mul_steps(cuda_point.window_digits(bits.cpu(), window), window)
+            chain = max(d + a for d, a in steps)
+            products = sum(d * dbl.n_products + a * add.n_products for d, a in steps)
+            nbytes = (6 * D * L + nbits) * 4 * lanes
+            digit = bound(nbytes, products * pf.mont_mul_u32_ops(L))
+            row = {"kernel": name, "curve": c.name, "shape": label, "lanes": lanes, "nbits": nbits, "c": window,
                    "tolerance": 0, "max_abs_err": max_abs_err(got, want), "ms": ms, "plain_ms": plain_ms,
-                   "additions": adds, "chain_additions": chain, "ms_per_chain_addition": ms / chain,
-                   "horner_ms_per_chain_addition": horner[f"horner_g{min(D, 2)}"]["ms_per_chain_addition"],
+                   "doublings": sum(d for d, _ in steps), "additions": sum(a for _, a in steps),
+                   "products": products, "chain_ops": chain, "ms_per_chain_op": ms / chain,
+                   "horner_ms_per_chain_addition": horner_op,
+                   "vs_horner": ms / chain / (sum(horner_op) / len(horner_op)),
                    "plain_on": "cpu" if plain_cpu else "cuda",
-                   **point_bound((6 * D * L + nbits) * 4 * lanes, adds, L, D == 2, g=g),
+                   **bound(nbytes, products * pf.mont_mul_word_ops(L)),
+                   "bound_15bit_ms": digit["bound_ms"], "bound_15bit_by": digit["bound_by"],
                    "card": card_line()}
             emit({"phase": "kernels", **row})
             if label in ("assembly [r, s, rs]", "assembly s"):
                 entries[name] = {
-                    "name": name, "route": "cuda", "source": "groth16_tpu_torch/csrc/point_add.cu",
-                    "replaces": "groth16_tpu/curves/point.py:367", **_kline(row),
+                    "name": name, "route": "cuda", "source": "groth16_tpu_torch/csrc/horner.cu",
+                    "replaces": "groth16_tpu/curves/point.py:380", **_kline(row),
+                    "c": window, "ms_per_chain_op": row["ms_per_chain_op"],
+                    "horner_ms_per_chain_addition": horner_op,
                 }
     return entries
 

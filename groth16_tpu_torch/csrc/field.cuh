@@ -14,9 +14,8 @@
 // carry addition (both compute value mod 2^(15 L) exactly).
 //
 // The constant table (fields/cuda_fp.py:kernel_consts) holds rows k*p for
-// k = 0..34, then in Montgomery form b3 = 3b (rows c0, c1), one (R mod p),
-// b3's c2 (Fq3), the curve coefficient a (rows c0, c1, c2; the generic-a
-// law) and the tower's nonresidue.
+// k = 0..34, then in Montgomery form b3 = 3b (rows c0, c1) and one (R mod
+// p).
 
 #pragma once
 
@@ -33,14 +32,8 @@ struct Consts {
   const uint32_t* __restrict__ c;
   uint32_t n0;  // -p^-1 mod 2^15
   __device__ __forceinline__ uint32_t kp(int k, int j) const { return __ldg(c + k * L + j); }
-  __device__ __forceinline__ uint32_t b3(int comp, int j) const {
-    return __ldg(c + (comp < 2 ? KP_ROWS + comp : KP_ROWS + 3) * L + j);
-  }
+  __device__ __forceinline__ uint32_t b3(int comp, int j) const { return __ldg(c + (KP_ROWS + comp) * L + j); }
   __device__ __forceinline__ uint32_t one(int j) const { return __ldg(c + (KP_ROWS + 2) * L + j); }
-  __device__ __forceinline__ uint32_t a(int comp, int j) const {
-    return __ldg(c + (KP_ROWS + 4 + comp) * L + j);
-  }
-  __device__ __forceinline__ uint32_t nr(int j) const { return __ldg(c + (KP_ROWS + 7) * L + j); }
 };
 
 // fp.fold: lazy -> semi; the top digit's high part is dropped (callers keep

@@ -5,9 +5,9 @@
 // plus an affine row, with the capture of the step before in the same
 // launch).
 //
-// Replaces: the generic-a form of K4/K5 (point_add.cu's
-// group_add_general, a lane group a point on 15-bit digits, four
-// product stages).  It has no Pallas counterpart: the JAX package computes the
+// Replaces: the generic-a form of K4/K5 (a lane group a point on 15-bit
+// digits in four product stages, which the port's point_add.cu held
+// until the scalar multiplication moved to csrc/horner.cu).  It has no Pallas counterpart: the JAX package computes the
 // law in XLA (groth16_tpu/curves/point.py:200, _add_general), and its
 // capture scan is a Python loop of from_affine, _add_general and a
 // select (groth16_tpu/msm/scans.py); the port's plain version
@@ -41,8 +41,8 @@
 //     (cap[t] = acc_in[src[t]] where jk[t] = k_prev) from its input
 //     accumulator in the same launch: one launch a step, one after the
 //     last.
-// The scalar multiplication (point_add.cu, scalar_mul_kernel) keeps the
-// four-stage generic-a group body (group_add_general).
+// The MSM's Horner chain and the proof assembly's scalar multiplication
+// run the same law as a program of curves/formulas.py (csrc/horner.cu).
 
 #include <cuda_runtime.h>
 

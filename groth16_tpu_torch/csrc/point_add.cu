@@ -7,20 +7,15 @@
 //   rcb_add_mixed_w   K6 (G1, on 32-bit words, point_add_words_kernel)
 //                     replaces add_mixed_g1_pallas (_add_mixed_kernel ->
 //                     mixed_add_g1_math).
-//   group_add_general  the generic-a law (RCB algorithm 1) of the MNT
-//                     curves (a = 2, 11) in four product stages:
-//                     the scalar multiplication's body in a
-//                     -DG16_GENERAL_A=1 library, over Fq, Fq2 (MNT4's
-//                     nonresidue 17) or Fq3 (MNT6's G2, D = 3).  The
-//                     generic-a full addition and the capture step run
-//                     csrc/general_add.cu, the MSM's Horner chain
-//                     csrc/horner.cu (every L and law).
+// The generic-a law of the MNT curves (a = 2, 11) runs csrc/general_add.cu
+// (the full addition, the capture step), and the MSM's Horner chain and
+// the proof assembly's scalar multiplication run csrc/horner.cu (every L
+// and law).
 // Each library holds one formula, so the four build in parallel:
-// -DG16_LIMBS=L (digits of Fq), -DG16_D=1 (G1, Fq), 2 (G2, Fq2) or 3 (G2,
-// Fq3; generic-a only), -DG16_MIXED=0 (rcb_add) or 1 (the mixed formula),
-// -DG16_NR=nr (the tower's nonresidue; unused for G1), -DG16_GENERAL_A=1
-// (the generic-a law: the scalar multiplication alone).  The library's name says which
-// (utils/cuda_build.py:point_add_variant).
+// -DG16_LIMBS=L (digits of Fq), -DG16_D=1 (G1, Fq) or 2 (G2, Fq2),
+// -DG16_MIXED=0 (rcb_add) or 1 (the mixed formula), -DG16_NR=nr (the
+// tower's nonresidue, |nr| <= 16; unused for G1).  The library's name says
+// which (utils/cuda_build.py:point_add_variant).
 //
 // Bound on an H100: integer multiply-add bound.  An addition needs 12
 // (mixed: 13) Montgomery products of 2 L^2 + L multiply-adds each on 15-bit
@@ -28,17 +23,12 @@
 // coordinates of 4 L bytes (x2 over Fp2) of traffic, 12-15 multiply-adds
 // per byte against the card's ~5 (64 per SM per clock on 132 SMs against
 // 3.35 TB/s).  On 32-bit words (field.cuh: mont_mul_w) a product takes 333
-// (L = 18) or 613 (L = 26) 32-bit multiplies, still ~6 per byte.  The
-// generic-a law takes 17 products (12, 3 by a, 2 by b3; x4 over Fq2, plus
-// one by the nonresidue for |NR| > 16; x9 over Fq3) in four product rounds
-// of 6, 4, 1 and 6, so more multiply-adds per byte still.
+// (L = 18) or 613 (L = 26) 32-bit multiplies, still ~6 per byte.
 //
-// The full addition (K4, K5), the G2 mixed one (K7) and the scalar
-// multiplication run on a group of lanes; the G1 mixed addition (K6) on
-// one thread on words:
+// The full addition (K4, K5) and the G2 mixed one (K7) run on a group of
+// lanes; the G1 mixed addition (K6) on one thread on words:
 //   point_add_group_kernel a group of lanes per point (6 for G1, 5 groups a
-//                          warp; 24 for G2, one a warp; 27 over Fq3, two
-//                          products a lane): each of the
+//                          warp; 24 for G2, one a warp): each of the
 //                          formula's three product stages (full: 6, 2 and
 //                          6 products; mixed: 6, 1 and 6; x4 Fq products
 //                          over Fp2) runs one product a lane, its operands
@@ -53,11 +43,6 @@
 //                          Most launches of a prove carry a few points,
 //                          where one addition's latency is the launch's
 //                          time.
-//   scalar_mul_kernel      bits * P for every lane in one launch (the proof
-//                          assembly's r, s and rs multiples: 1-3 points of
-//                          ~255 bits): the double-and-add select loop,
-//                          each add the group body; the add runs where any
-//                          point of the warp takes the bit.
 //   point_add_words_kernel K6, one thread per point: every K6 launch of a
 //                          prove carries thousands of points (the capture
 //                          scan's steps), so its cost is throughput.  The
@@ -84,13 +69,7 @@
 #include "point.cuh"
 
 #if !defined(G16_LIMBS) || !defined(G16_D) || !defined(G16_MIXED) || !defined(G16_NR)
-#error "compile with -DG16_LIMBS=<digits> -DG16_D=<1|2|3> -DG16_MIXED=<0|1> -DG16_NR=<nonresidue>"
-#endif
-#ifndef G16_GENERAL_A
-#define G16_GENERAL_A 0
-#endif
-#if G16_GENERAL_A && G16_MIXED
-#error "the generic-a law has no mixed form (the JAX package has none)"
+#error "compile with -DG16_LIMBS=<digits> -DG16_D=<1|2> -DG16_MIXED=<0|1> -DG16_NR=<nonresidue>"
 #endif
 
 namespace {
@@ -109,15 +88,15 @@ constexpr int kGroupWarps = L > 26 ? 2 : 4;
 
 // A point's shared words: SLOTS elements of D components, each component L
 // digits at an odd stride (lanes that read neighbouring components hit
-// distinct banks), then, over Fp2 (Fp3), the 24 (54) raw Fq products of a
-// stage.  A lane runs one product of a stage, over Fp3 two (27 lanes, one
-// point a warp: its 54 products would need more lanes than a warp has).
+// distinct banks), then, over Fp2, the 24 raw Fq products of a stage.  A
+// lane runs one product of a stage.
 template <int L, int D>
 struct Group {
+  static_assert(D == 1 || D == 2, "G1 over Fq or G2 over Fq2");
   static constexpr int LP = L | 1;
   static constexpr int E = D * LP;          // words an element
   static constexpr int SLOTS = 19;
-  static constexpr int LANES = D == 3 ? 27 : 6 * D * D;  // lanes a point
+  static constexpr int LANES = 6 * D * D;   // lanes a point
   static constexpr int PER_WARP = 32 / LANES;
   static constexpr int WORDS = SLOTS * E + (D > 1 ? 6 * D * D * LP : 0);
 };
@@ -159,16 +138,16 @@ __device__ __forceinline__ void st(uint32_t* s, const uint32_t (&x)[L]) {
 // fmul's combination of stage products q < nq over Fp2 (the raw Fq
 // products a0 b0, a1 b1, a0 b1, a1 b0 of each after the slots), two lanes
 // a product: c0 = v00 + NR v11 to [0, 2p), c1 = v01 + v10 to [0, 2p),
-// into slot pick(to, q).  For |NR| <= 16, NR v11 is a lazy multiple; past
-// it (MNT4's 17: the bound 2 + 2 |NR| would pass the table's 34 p), a
-// product by the nonresidue's Montgomery form, as Fp2Ops.mul_many does.
+// into slot pick(to, q); NR v11 is a lazy multiple (|NR| <= 16 keeps the
+// bound 2 + 2 |NR| within the table's 34 p).
 template <int L, int NR>
 __device__ __forceinline__ void fp2_combine(uint32_t* s, int t, int nq, unsigned long long to,
                                             const Consts<L>& k) {
   using G = Group<L, 2>;
   constexpr int E = G::E, LP = G::LP;
   constexpr int ANR = NR < 0 ? -NR : NR;
-  constexpr int BOUND = ANR > 16 ? 4 : 2 + 2 * ANR;
+  static_assert(ANR >= 1 && ANR <= 16, "a small Fq2 nonresidue");
+  constexpr int BOUND = 2 + 2 * ANR;
   if (t >= 0 && t < nq * 2) {
     const int q = t / 2;
     const uint32_t* raw = s + G::SLOTS * E + q * 4 * LP;
@@ -176,22 +155,13 @@ __device__ __forceinline__ void fp2_combine(uint32_t* s, int t, int nq, unsigned
     if (t % 2 == 0) {
       ld<L>(u, raw);
       ld<L>(v, raw + LP);
-      if constexpr (ANR > 16) {
-        uint32_t w[L];
 #pragma unroll
-        for (int j = 0; j < L; j++) w[j] = k.nr(j);
-        g16::mont_mul_inline<L>(v, w, r, k);
-#pragma unroll
-        for (int j = 0; j < L; j++) r[j] += u[j];
+      for (int j = 0; j < L; j++) v[j] *= ANR;
+      if constexpr (NR < 0) {
+        g16::sub<L>(u, v, 2 * ANR, r, k);
       } else {
 #pragma unroll
-        for (int j = 0; j < L; j++) v[j] *= ANR;
-        if constexpr (NR < 0) {
-          g16::sub<L>(u, v, 2 * ANR, r, k);
-        } else {
-#pragma unroll
-          for (int j = 0; j < L; j++) r[j] = u[j] + v[j];
-        }
+        for (int j = 0; j < L; j++) r[j] = u[j] + v[j];
       }
       g16::reduce_to_2p<L, (BOUND > 4 ? BOUND : 4)>(r, k);
     } else {
@@ -398,187 +368,6 @@ __device__ __forceinline__ void group_add_mixed(uint32_t* s, int t, const Consts
   }
 }
 
-// Fp3Ops.mul_many's combination of stage products q < nq over Fp3 (the raw
-// Fq products a0 b0, a1 b2, a2 b1, a0 b1, a1 b0, a2 b2, a0 b2, a1 b1, a2 b0
-// of each after the slots), three lanes a product: c0 = v00 + NR (v12 +
-// v21), c1 = v01 + v10 + NR v22, c2 = v02 + v11 + v20, each to [0, 2p),
-// into slot pick(to, q).
-template <int L, int NR>
-__device__ __forceinline__ void fp3_combine(uint32_t* s, int t, int nq, unsigned long long to,
-                                            const Consts<L>& k) {
-  using G = Group<L, 3>;
-  constexpr int E = G::E, LP = G::LP;
-  static_assert(NR > 0 && NR <= 16, "a small positive cubic nonresidue (MNT6's 5)");
-  if (t >= 0 && t < nq * 3) {
-    const int q = t / 3, c = t % 3;
-    const uint32_t* raw = s + G::SLOTS * E + (q * 9 + 3 * c) * LP;
-    uint32_t r[L];
-#pragma unroll
-    for (int j = 0; j < L; j++) {
-      const uint32_t u0 = raw[j], u1 = raw[LP + j], u2 = raw[2 * LP + j];
-      r[j] = c == 0 ? u0 + NR * (u1 + u2) : c == 1 ? u0 + u1 + NR * u2 : u0 + u1 + u2;
-    }
-    if (c == 0) {
-      g16::reduce_to_2p<L, 2 + 4 * NR>(r, k);  // < (2 + 4 NR) p
-    } else if (c == 1) {
-      g16::reduce_to_2p<L, 4 + 2 * NR>(r, k);  // < (4 + 2 NR) p
-    } else {
-      g16::reduce_to_2p<L, 6>(r, k);
-    }
-    st<L>(s + pick(to, q) * E + c * LP, r);
-  }
-}
-
-// Components of the operands of raw Fq product m of a tower product
-// (Fp2Ops / Fp3Ops mul_many's order).
-template <int D>
-__device__ __forceinline__ int comp_a(int m) {
-  return D == 1 ? 0 : D == 2 ? (m == 1 || m == 3) : m % 3;
-}
-template <int D>
-__device__ __forceinline__ int comp_b(int m) {
-  return D == 1 ? 0 : D == 2 ? (m == 1 || m == 2) : (m / 3 - m % 3 + 3) % 3;
-}
-
-// Slots of the generic-a law (group_add_general).  Stage 0's pre-adds are
-// formed in the product lanes' registers, so its products land in 6-11;
-// the constant a sits in 17 beside b3 in 18.
-enum : int {
-  GT0 = 6, GT1 = 7, GT2 = 8, GM3 = 9, GM4 = 10, GM5 = 11,
-  GXY = 0, GYZ = 1, GXZ = 2,                         // after stage 0
-  GAXZ = 12, GB3Z = 13, GAZ = 14, GB3XZ = 15,        // stage 1's products
-  GX3T = 3, GZ3T = 4, GE = 5, GT2M = 9,              // after stage 1
-  GAT2M = 10, GF = 11,                               // stage 2, and after it
-  GY3A = 6, GEF = 7, GW0 = 8, GXYX3 = 12, GXYE = 13, GYZZ3 = 14,  // stage 3
-  GA = 17,
-};
-
-// The generic-a law (CurveDevice._add_general, cuda_point.add_general_plain)
-// on one point's shared words s by its group of lanes, as group_add: four
-// product stages of 6, 4, 1 and 6 tower products, each lane running the
-// raw Fq products u = t, t + LANES, ... of a stage, then the tower
-// combination and the element work one component a lane.  Inputs in slots
-// X1..Z2, a in GA and b3 in B3; (X3, Y3, Z3) out in slots 0-2.
-template <int L, int D, int NR>
-__device__ __forceinline__ void group_add_general(uint32_t* s, int t, const Consts<L>& k) {
-  using G = Group<L, D>;
-  constexpr int E = G::E, LP = G::LP, DD = D * D;
-#pragma unroll 1
-  for (int stage = 0; stage < 4; stage++) {
-    // t0 t1 t2 m3 m4 m5 | axz b3z az b3xz | at2m | y3a ef w0 xyx3 xye yzz3
-    const int nq = stage == 0 ? 6 : stage == 1 ? 4 : stage == 2 ? 1 : 6;
-    const unsigned long long ta = stage == 0   ? slots6(X1, Y1, Z1, X1, Y1, X1)
-                                  : stage == 1 ? slots6(GXZ, GT2, GT2, GXZ, 0, 0)
-                                  : stage == 2 ? slots6(GT2M, 0, 0, 0, 0, 0)
-                                               : slots6(GX3T, GE, GYZ, GXY, GXY, GYZ);
-    const unsigned long long tb = stage == 0   ? slots6(X2, Y2, Z2, X2, Y2, X2)
-                                  : stage == 1 ? slots6(GA, B3, GA, B3, 0, 0)
-                                  : stage == 2 ? slots6(GA, 0, 0, 0, 0, 0)
-                                               : slots6(GZ3T, GF, GF, GX3T, GE, GZ3T);
-    const unsigned long long to = stage == 0   ? slots6(GT0, GT1, GT2, GM3, GM4, GM5)
-                                  : stage == 1 ? slots6(GAXZ, GB3Z, GAZ, GB3XZ, 0, 0)
-                                  : stage == 2 ? slots6(GAT2M, 0, 0, 0, 0, 0)
-                                               : slots6(GY3A, GEF, GW0, GXYX3, GXYE, GYZZ3);
-    if (t >= 0) {
-#pragma unroll 1
-      for (int u = t; u < nq * DD; u += G::LANES) {
-        const int q = u / DD, m = u % DD;
-        const int oa = comp_a<D>(m) * LP, ob = comp_b<D>(m) * LP;
-        uint32_t a[L], b[L], r[L];
-        ld<L>(a, s + pick(ta, q) * E + oa);
-        ld<L>(b, s + pick(tb, q) * E + ob);
-        if (stage == 0 && q >= 3) {  // (X1 + Y1)(X2 + Y2), (Y1 + Z1)(Y2 + Z2), (X1 + Z1)(X2 + Z2)
-          const int a2 = q == 3 ? Y1 : Z1, b2 = q == 3 ? Y2 : Z2;
-#pragma unroll
-          for (int j = 0; j < L; j++) {
-            a[j] += s[a2 * E + oa + j];
-            b[j] += s[b2 * E + ob + j];
-          }
-        }
-        g16::mont_mul_inline<L>(a, b, r, k);
-        st<L>(D == 1 ? s + pick(to, q) * E : s + G::SLOTS * E + u * LP, r);
-      }
-    }
-    __syncwarp();
-    if constexpr (D == 2) {
-      fp2_combine<L, NR>(s, t, nq, to, k);
-      __syncwarp();
-    } else if constexpr (D == 3) {
-      fp3_combine<L, NR>(s, t, nq, to, k);
-      __syncwarp();
-    }
-    // the element work after each stage, one component a lane
-    const int ne = stage == 0 ? 3 : stage == 1 ? 4 : stage == 2 ? 1 : 3;
-    if (t >= 0 && t < ne * D) {
-      const int e = t / D, off = (t % D) * LP;
-      uint32_t a[L], b[L], r[L];
-      if (stage == 0) {
-        // xy = m3 - (t0 + t1), yz = m4 - (t1 + t2), xz = m5 - (t0 + t2), + 4p
-        const int b1 = e == 1 ? GT1 : GT0, b2 = e == 0 ? GT1 : GT2;
-        ld<L>(a, s + (GM3 + e) * E + off);
-#pragma unroll
-        for (int j = 0; j < L; j++) b[j] = s[b1 * E + off + j] + s[b2 * E + off + j];
-        g16::sub<L>(a, b, 4, r, k);
-        st<L>(s + (GXY + e) * E + off, r);
-      } else if (stage == 1) {
-        // d = axz + b3z; X3t = t1 - d + 4p, Z3t = t1 + d, e = 3 t0 + az,
-        // t2m = t0 - az + 2p
-        if (e < 2) {
-          ld<L>(a, s + GT1 * E + off);
-#pragma unroll
-          for (int j = 0; j < L; j++) b[j] = s[GAXZ * E + off + j] + s[GB3Z * E + off + j];
-          if (e == 0) {
-            g16::sub<L>(a, b, 4, r, k);
-          } else {
-#pragma unroll
-            for (int j = 0; j < L; j++) r[j] = a[j] + b[j];
-          }
-        } else {
-          ld<L>(a, s + GT0 * E + off);
-          ld<L>(b, s + GAZ * E + off);
-          if (e == 2) {
-#pragma unroll
-            for (int j = 0; j < L; j++) r[j] = a[j] + a[j] + a[j] + b[j];
-          } else {
-            g16::sub<L>(a, b, 2, r, k);
-          }
-        }
-        st<L>(s + pick(slots6(GX3T, GZ3T, GE, GT2M, 0, 0), e) * E + off, r);
-      } else if (stage == 2) {  // f = b3xz + at2m (lazy)
-#pragma unroll
-        for (int j = 0; j < L; j++) r[j] = s[GB3XZ * E + off + j] + s[GAT2M * E + off + j];
-        st<L>(s + GF * E + off, r);
-      } else {
-        // X3 = xyx3 - w0 + 2p, Y3 = y3a + ef, Z3 = yzz3 + xye, each to [0, 2p)
-        const int a_slot = pick(slots6(GXYX3, GY3A, GYZZ3, 0, 0, 0), e);
-        const int b_slot = pick(slots6(GW0, GEF, GXYE, 0, 0, 0), e);
-        ld<L>(a, s + a_slot * E + off);
-        ld<L>(b, s + b_slot * E + off);
-        if (e == 0) {
-          g16::sub_exact<L>(a, b, 2, r, k);
-        } else {
-#pragma unroll
-          for (int j = 0; j < L; j++) r[j] = a[j] + b[j];
-        }
-        g16::cond_sub<L>(r, 2, k);
-        st<L>(s + e * E + off, r);  // X3, Y3, Z3 in slots 0-2
-      }
-    }
-    __syncwarp();
-  }
-}
-
-// The full addition of this library: the a = 0 law or the generic-a one.
-template <int L, int D, int NR>
-__device__ __forceinline__ void group_body(uint32_t* s, int t, const Consts<L>& k) {
-  if constexpr (G16_GENERAL_A) {
-    group_add_general<L, D, NR>(s, t, k);
-  } else {
-    static_assert(D < 3, "Fq3 points have the generic-a law only");
-    group_add<L, D, NR>(s, t, k);
-  }
-}
-
 // Element slot of s <- digit (j, c) of point idx at src[(j D + c) stride +
 // idx] (the wrappers' limb-major planes), words t, t + LANES, ...
 template <int L, int D>
@@ -596,15 +385,11 @@ __device__ __forceinline__ void store_elem(uint32_t* __restrict__ dst, long long
   for (int w = t; w < D * L; w += G::LANES) dst[w * stride + idx] = s[(w % D) * G::LP + w / D];
 }
 
-// b3 into slot B3 (the constant table's b3 rows) and, for the generic-a
-// law, a into slot GA
+// b3 into slot B3 (the constant table's b3 rows)
 template <int L, int D>
 __device__ __forceinline__ void load_b3(uint32_t* s, int t, const Consts<L>& k) {
   using G = Group<L, D>;
-  for (int w = t; w < D * L; w += G::LANES) {
-    s[B3 * G::E + (w % D) * G::LP + w / D] = k.b3(w % D, w / D);
-    if (G16_GENERAL_A) s[GA * G::E + (w % D) * G::LP + w / D] = k.a(w % D, w / D);
-  }
+  for (int w = t; w < D * L; w += G::LANES) s[B3 * G::E + (w % D) * G::LP + w / D] = k.b3(w % D, w / D);
 }
 
 // The warp's points start at `first`; the lane's point is first + its group.
@@ -668,96 +453,12 @@ __global__ void __launch_bounds__(32 * kGroupWarps<L>, 4)
     const int tf = finite_lane<L, D>(s, t);
     if (__any_sync(0xffffffffu, tf >= 0)) group_add_mixed<L, D, NR>(s, tf, k);
   } else {
-    group_body<L, D, NR>(s, t, k);
+    group_add<L, D, NR>(s, t, k);
   }
   if (t >= 0) {
     store_elem<L, D>(x3, n, i, s + 0 * G::E, t);
     store_elem<L, D>(y3, n, i, s + 1 * G::E, t);
     store_elem<L, D>(z3, n, i, s + 2 * G::E, t);
-  }
-}
-
-// warps a block of the scalar multiplication (26 KB of shared memory a
-// warp at L = 52)
-template <int L>
-constexpr int kScalarWarps = L > 26 ? 1 : 2;
-
-// A point's shared words in the scalar multiplication: the group body's,
-// then the running sum (ACC) and the doubled base (BASE), 3 elements each.
-template <int L, int D>
-struct ScalarGroup {
-  using G = Group<L, D>;
-  static constexpr int ACC = G::WORDS, BASE = G::WORDS + 3 * G::E;
-  static constexpr int WORDS = G::WORDS + 6 * G::E;
-};
-
-// res[l] = bits[l] * P[l] for every lane, bits[l] nbits little-endian:
-// from acc = (0 : 1 : 0) and base = P, for each bit i acc = add(acc, base)
-// where bit i is set, then base = add(base, base); each add the group body.
-// group_add synchronises the warp, so the warp runs acc + base when any of
-// its points takes bit i, and a point whose bit is clear keeps its acc: the
-// digits are those of the select loop (CurveDevice.scalar_mul_bits).  The
-// last doubling feeds nothing and is left out.  p planes [*coords, lanes],
-// bits int32 [lanes, nbits].
-template <int L, int D, int NR>
-__global__ void __launch_bounds__(32 * kScalarWarps<L>, 8)
-    scalar_mul_kernel(const uint32_t* __restrict__ px, const uint32_t* __restrict__ py,
-                      const uint32_t* __restrict__ pz, const int32_t* __restrict__ bits,
-                      uint32_t* __restrict__ rx, uint32_t* __restrict__ ry,
-                      uint32_t* __restrict__ rz, long long lanes, int nbits,
-                      const uint32_t* __restrict__ consts, uint32_t n0) {
-  using G = Group<L, D>;
-  using SG = ScalarGroup<L, D>;
-  __shared__ uint32_t smem[kScalarWarps<L> * G::PER_WARP * SG::WORDS];
-  const long long first =
-      ((long long)blockIdx.x * kScalarWarps<L> + threadIdx.x / 32) * G::PER_WARP;
-  if (first >= lanes) return;  // the whole warp
-  const int lane = threadIdx.x % 32, gp = lane / G::LANES;
-  const bool live = gp < G::PER_WARP && first + gp < lanes;
-  uint32_t* s = smem + (threadIdx.x / 32 * G::PER_WARP + (gp < G::PER_WARP ? gp : 0)) * SG::WORDS;
-  const int t = live ? lane % G::LANES : -1;
-  const long long l = first + gp;
-  Consts<L> k{consts, n0};
-  if (t >= 0) {
-    for (int w = t; w < D * L; w += G::LANES) {
-      const int j = w / D, cc = w % D, o = cc * G::LP + j;
-      s[SG::ACC + X1 * G::E + o] = 0;
-      s[SG::ACC + Y1 * G::E + o] = cc == 0 ? k.one(j) : 0;
-      s[SG::ACC + Z1 * G::E + o] = 0;
-    }
-    load_elem<L, D>(s + SG::BASE + 0 * G::E, px, lanes, l, t);
-    load_elem<L, D>(s + SG::BASE + 1 * G::E, py, lanes, l, t);
-    load_elem<L, D>(s + SG::BASE + 2 * G::E, pz, lanes, l, t);
-    load_b3<L, D>(s, t, k);
-  }
-  __syncwarp();
-  // step 2i: acc + base for bit i; step 2i + 1: base + base.  One call
-  // site of the group body, so its code is inlined once.
-  bool take = false;
-#pragma unroll 1
-  for (int step = 0; step < 2 * nbits - 1; step++) {
-    const bool dbl = step % 2;
-    if (!dbl) {
-      take = t >= 0 && (__ldg(bits + l * nbits + step / 2) & 1);
-      if (!__any_sync(0xffffffffu, take)) continue;  // no point of the warp takes the bit
-    }
-    const int from = dbl ? SG::BASE : SG::ACC;
-    if (t >= 0) {
-      for (int x = t; x < 3 * G::E; x += G::LANES) {
-        s[X1 * G::E + x] = s[from + x];
-        s[X2 * G::E + x] = s[SG::BASE + x];
-      }
-    }
-    __syncwarp();
-    group_body<L, D, NR>(s, t, k);
-    if (dbl ? t >= 0 : take)
-      for (int x = t; x < 3 * G::E; x += G::LANES) s[from + x] = s[X1 * G::E + x];
-    __syncwarp();
-  }
-  if (t >= 0) {
-    store_elem<L, D>(rx, lanes, l, s + SG::ACC + 0 * G::E, t);
-    store_elem<L, D>(ry, lanes, l, s + SG::ACC + 1 * G::E, t);
-    store_elem<L, D>(rz, lanes, l, s + SG::ACC + 2 * G::E, t);
   }
 }
 
@@ -917,7 +618,6 @@ extern "C" int g16_point_add_mixed_group(const void* x1, const void* y1, const v
   return (int)cudaGetLastError();
 }
 #else
-#if !G16_GENERAL_A
 // The full addition in the group form (K4, K5).
 extern "C" int g16_point_add_group(const void* x1, const void* y1, const void* z1,
                                    const void* x2, const void* y2, const void* z2, void* x3,
@@ -930,20 +630,6 @@ extern "C" int g16_point_add_group(const void* x1, const void* y1, const void* z
           (const uint32_t*)x1, (const uint32_t*)y1, (const uint32_t*)z1, (const uint32_t*)x2,
           (const uint32_t*)y2, (const uint32_t*)z2, (uint32_t*)x3, (uint32_t*)y3, (uint32_t*)z3,
           n, (const uint32_t*)consts, n0);
-  return (int)cudaGetLastError();
-}
-#endif
-
-// bits[l] * P[l] for `lanes` points, bits int32 [lanes, nbits] little-endian.
-extern "C" int g16_scalar_mul(const void* px, const void* py, const void* pz, const void* bits,
-                              void* rx, void* ry, void* rz, long long lanes, int nbits,
-                              const void* consts, unsigned n0, void* stream) {
-  constexpr int per_block = kScalarWarps<G16_LIMBS> * Group<G16_LIMBS, G16_D>::PER_WARP;
-  long long blocks = (lanes + per_block - 1) / per_block;
-  scalar_mul_kernel<G16_LIMBS, G16_D, G16_NR><<<(unsigned)blocks, 32 * kScalarWarps<G16_LIMBS>, 0,
-                                                (cudaStream_t)stream>>>(
-      (const uint32_t*)px, (const uint32_t*)py, (const uint32_t*)pz, (const int32_t*)bits,
-      (uint32_t*)rx, (uint32_t*)ry, (uint32_t*)rz, lanes, nbits, (const uint32_t*)consts, n0);
   return (int)cudaGetLastError();
 }
 #endif

@@ -13,9 +13,11 @@ Counterpart of `groth16_tpu/curves/pallas_point.py`:
                 groth16_tpu/msm/pippenger.py:660): csrc/horner.cu, one
                 block an MSM lane, the doubling and addition programs of
                 curves/formulas.py on 32-bit words
-  scalar_mul_g1/g2  per-lane double-and-add of the proof assembly (the
-                JAX package's `fori_loop` of `CurveDevice.add` in
-                `scalar_mul_bits`, groth16_tpu/curves/point.py:367)
+  scalar_mul_g1/g2  the proof assembly's per-lane scalar multiplication
+                (the JAX package's `fori_loop` of `CurveDevice.add` in
+                `scalar_mul_bits`, groth16_tpu/curves/point.py:367):
+                csrc/horner.cu, one block a lane, fixed windows of
+                SCALAR_MUL_WINDOW bits on Horner's programs
   capture_step_g1/g2  one step of the capture scan where a != 0: the
                 accumulator plus an affine row, and the step before's
                 captures, in one launch (the JAX package's from_affine,
@@ -27,20 +29,17 @@ and the capture step run the generic-a group kernel (csrc/general_add.cu:
 RCB algorithm 1, the JAX package's `CurveDevice._add_general`,
 groth16_tpu/curves/point.py:200, which has no Pallas kernel; 32-bit
 words, one lane a tower component) over Fq, Fq2 (MNT4's nonresidue 17)
-or Fq3 (MNT6's G2, `deg` 3), Horner its programs for that law, and the
-scalar multiplication the four-stage generic-a group body (point_add.cu).  The
-mixed additions and the scans exist for a = 0 only, as in the JAX
-package.
+or Fq3 (MNT6's G2, `deg` 3), Horner and the scalar multiplication its
+programs for that law.  The mixed additions and the scans exist for a =
+0 only, as in the JAX package.
 
 One CUDA kernel body per formula (csrc/point_add.cu: rcb_add<F>,
 rcb_add_mixed<F>, and K6's rcb_add_mixed_w) templated on the coordinate
 field.  The full addition
-(K4/K5), the G2 mixed addition (K7), the Horner chain and the scalar
-multiplication run on a group
-of lanes per point (6 for G1, 24 for G2 over Fq2, 27 over Fq3), each of
-the formula's product stages (three; four for the generic-a law) one
-product a lane (two over Fq3): most launches of a prove carry a few
-points, where one addition's latency is the launch's time.  The G1 mixed
+(K4/K5) and the G2 mixed addition (K7) run on a group of lanes per point
+(6 for G1, 24 for G2 over Fq2), each of the formula's three product
+stages one product a lane: most launches of a prove carry a few points,
+where one addition's latency is the launch's time.  The G1 mixed
 addition (K6), whose launches (the capture scan's steps) carry thousands
 of points, runs one thread per point with its coordinates packed into
 32-bit words (csrc/point.cuh: rcb_add_mixed_w), the word engine of K1,
@@ -54,8 +53,8 @@ program of curves/formulas.py (a != 0); K6/K7 transcribe
 `pallas_point.mixed_add_g1_math` and its Fp2 form; Horner runs the
 programs of its kernel in a loop (c doublings and an addition a window),
 the capture step from_affine, the generic-a program and the select, the
-scalar multiplication the select loop of `CurveDevice.scalar_mul_bits`
-(where a != 0 on the four-stage law, `add_general_rounds_plain`).  Their
+scalar multiplication the same programs in its kernel's windows (the
+table, the top digit, the skipped zero digits).  Their
 multiplies run the plain version of K1 (or Python ints for a few points
 on the CPU), so they are plain PyTorch on any device.  The kernels
 repeat the same operations in the same order and return the same
@@ -182,10 +181,10 @@ def a_is_zero(a_val) -> bool:
     return not any(a_val) if isinstance(a_val, tuple) else a_val == 0
 
 
-def _lib(n_limbs: int, deg: int, mixed: bool, nr: int, general: bool = False):
+def _lib(n_limbs: int, deg: int, mixed: bool, nr: int):
     from groth16_tpu_torch.utils.cuda_build import library, point_add_variant
 
-    lib = library(point_add_variant(n_limbs, deg, mixed, nr, general))
+    lib = library(point_add_variant(n_limbs, deg, mixed, nr))
     if not getattr(lib, "_g16_typed", False):
         P = ctypes.c_void_p
         tail = [ctypes.c_longlong, P, ctypes.c_uint, P]
@@ -200,13 +199,8 @@ def _lib(n_limbs: int, deg: int, mixed: bool, nr: int, general: bool = False):
             lib.g16_point_add_mixed_group.argtypes = [P] * 8 + tail
             lib.g16_point_add_mixed_group.restype = ctypes.c_int
         else:
-            if not general:  # the generic-a library holds the scalar multiplication alone
-                lib.g16_point_add_group.argtypes = [P] * 9 + tail
-                lib.g16_point_add_group.restype = ctypes.c_int
-            lib.g16_scalar_mul.argtypes = [P] * 7 + [
-                ctypes.c_longlong, ctypes.c_int, P, ctypes.c_uint, P
-            ]
-            lib.g16_scalar_mul.restype = ctypes.c_int
+            lib.g16_point_add_group.argtypes = [P] * 9 + tail
+            lib.g16_point_add_group.restype = ctypes.c_int
         lib._g16_typed = True
     return lib
 
@@ -229,14 +223,18 @@ def _general_lib(n_limbs: int, deg: int, nr: int):
 
 
 def _horner_lib(n_limbs: int):
-    """The Horner kernel's library at L (csrc/horner.cu)."""
+    """The library of the Horner and scalar-multiplication kernels at L
+    (csrc/horner.cu)."""
     from groth16_tpu_torch.utils.cuda_build import horner_variant, library
 
     lib = library(horner_variant(n_limbs))
     if not getattr(lib, "_g16_typed", False):
         P, LL, I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        lib.g16_horner.argtypes = [P] * 6 + [LL, I, I, I, P, P, I, I, P, I, I, ctypes.POINTER(ctypes.c_uint), P]
+        tail = [P, P, I, I, P, I, I, ctypes.POINTER(ctypes.c_uint), P]  # dbl .. stream
+        lib.g16_horner.argtypes = [P] * 6 + [LL, I, I, I] + tail
         lib.g16_horner.restype = ctypes.c_int
+        lib.g16_scalar_mul.argtypes = [P] * 7 + [LL, I, I, I] + tail
+        lib.g16_scalar_mul.restype = ctypes.c_int
         lib._g16_typed = True
     return lib
 
@@ -324,10 +322,6 @@ def _count_general(kind, D, general):
         GENERAL_A_LAUNCHES[f"{kind}_d{D}"] += 1
 
 
-def _consts(spec, nr, b3_val, a_val, dev):
-    return kernel_consts(spec, b3_val, dev, a_val, nr or 0)
-
-
 def _launch(name, mixed, spec, nr, deg, b3_val, a_val, p1, p2):
     """Launch one point-add kernel on CUDA coordinates; nr is None for
     G1 (Fq coordinates), the tower's nonresidue for G2 over Fq2 or Fq3
@@ -352,7 +346,7 @@ def _launch(name, mixed, spec, nr, deg, b3_val, a_val, p1, p2):
         rc = lib.g16_point_add_mixed_g1(form, *ptrs, n, mixed_word_consts(spec, b3_val), stream)
     else:  # K7, or K4/K5: a lane group a point
         fn = lib.g16_point_add_mixed_group if mixed else lib.g16_point_add_group
-        rc = fn(*ptrs, n, _consts(spec, nr, b3_val, a_val, dev).data_ptr(), spec.n0inv, stream)
+        rc = fn(*ptrs, n, kernel_consts(spec, b3_val, dev).data_ptr(), spec.n0inv, stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
     LAUNCHES[name] += 1
@@ -443,6 +437,29 @@ def horner_g2(spec: FpSpec, nr: int, b3_val, sums, c: int, a_val=0, deg: int = 2
     return _horner("horner_g2", spec, nr, deg, b3_val, a_val, sums, c)
 
 
+# Window bits of the scalar multiplication (csrc/horner.cu:
+# scalar_mul_kernel, and its plain version) at every L.  chip_ab.py's
+# sweep at the device assembly's G1 [r, s, rs] and G2 s shapes, ms at c =
+# 1, 2, 3, 4, 5 (NVIDIA H100 80GB HBM3, 700.00 W): bn254 (L = 18) 1.871,
+# 1.686, 1.590, 1.577, 1.580 and 2.486, 2.229, 2.078, 2.045, 2.079;
+# bls12_381 (26) 2.627, 2.345, 2.198, 2.148, 2.168 and 3.507, 3.190,
+# 2.990, 2.954, 2.966; mnt6_298 (21) 4.029, 3.564, 3.408, 3.295, 3.321
+# and (Fq3) 5.006, 4.575, 4.340, 4.267, 4.289; bw6_761 (52) 11.681,
+# 10.559, 9.921, 9.625, 9.720 and 9.727, 8.932, 8.356, 8.211, 8.207.  c =
+# 4 is the fastest or within 1% of c = 5 at every L.
+SCALAR_MUL_WINDOW = 4
+
+
+def window_digits(bits: torch.Tensor, c: int) -> torch.Tensor:
+    """int64 [lanes, ceil(nbits / c)] digits of c-bit windows of bits int32
+    [lanes, nbits] little-endian (bit & 1), window 0 first; the top window
+    takes the bits left where c does not divide nbits."""
+    lanes, nbits = bits.shape
+    nw = -(-nbits // c)
+    b = torch.nn.functional.pad((bits & 1).long(), (0, nw * c - nbits))
+    return (b.reshape(lanes, nw, c) << torch.arange(c, device=bits.device)).sum(-1)
+
+
 def _scalar_mul(name, spec, nr, deg, b3_val, a_val, pt, bits):
     dev = _device(name, list(pt) + [bits])
     if dev.type == "cpu":
@@ -458,15 +475,18 @@ def _scalar_mul(name, spec, nr, deg, b3_val, a_val, pt, bits):
     ins = [check_operand(x, lead, lanes, f"{name} input {i}") for i, x in enumerate(pt)]
     if bits.dtype != torch.int32 or not bits.is_contiguous():
         raise TypeError(f"{name}: expected contiguous int32 bits, got {bits.dtype}")
+    c = SCALAR_MUL_WINDOW
     if nbits < 1:
         raise ValueError(f"{name}: needs at least one bit")
     outs = [torch.empty(lead + (lanes,), dtype=torch.int32, device=dev) for _ in range(3)]
     if lanes == 0:
         return tuple(outs)
-    consts = _consts(spec, nr, b3_val, a_val, dev)
-    rc = _lib(L, D, False, 0 if nr is None else nr, general).g16_scalar_mul(
-        *[x.data_ptr() for x in ins], bits.data_ptr(), *[o.data_ptr() for o in outs], lanes, nbits,
-        consts.data_ptr(), spec.n0inv, torch.cuda.current_stream(dev).cuda_stream,
+    hp = horner_programs(spec, D, nr, a_val, b3_val)
+    dbl, add, consts = _horner_tensors(spec, D, nr, a_val, b3_val, dev)
+    rc = _horner_lib(L).g16_scalar_mul(
+        *[x.data_ptr() for x in ins], bits.data_ptr(), *[o.data_ptr() for o in outs], lanes, nbits, c, D,
+        dbl.data_ptr(), add.data_ptr(), hp["p2"], hp["slots"], consts.data_ptr(), hp["nconsts"],
+        hp["threads"], word_consts(spec), torch.cuda.current_stream(dev).cuda_stream,
     )
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
@@ -477,7 +497,8 @@ def _scalar_mul(name, spec, nr, deg, b3_val, a_val, pt, bits):
 
 def scalar_mul_g1(spec: FpSpec, b3_val: int, pt, bits, a_val=0):
     """bits[l] * P[l] for each lane: points (X, Y, Z) each [L, lanes],
-    bits int32 [lanes, nbits] little-endian -> [L, lanes], in one launch."""
+    bits int32 [lanes, nbits] little-endian -> [L, lanes], in one launch
+    (windows of SCALAR_MUL_WINDOW bits)."""
     return _scalar_mul("scalar_mul_g1", spec, None, 1, b3_val, a_val, pt, bits)
 
 
@@ -606,51 +627,6 @@ def add_general_plain(k, b3_val, a_val, p1, p2):
     return formulas.run_plain(prog, (p1, p2))
 
 
-def add_general_rounds_plain(k, b3_val, a_val, p1, p2):
-    """Plain version of the four-stage generic-a group body, which the scalar
-    multiplication's generic-a library keeps (point_add.cu:
-    group_add_general): RCB algorithm 1 of eprint 2015/1060 as
-    `groth16_tpu/curves/point.py:CurveDevice._add_general` stacks it, 12
-    products, 3 by a and 2 by b3 in four product rounds (6, 4, 1, 6).
-
-    Value ledger (multiples of p): xy/xz/yz < 6p; d < 4p; X3t/Z3t < 6p;
-    e < 8p; t2m < 4p; f < 4p; round-4 products <= 48 p^2 (< 64 p^2
-    budget); outputs < 4p pre-reduce."""
-    X1, Y1, Z1 = p1
-    X2, Y2, Z2 = p2
-    dev = X1.device
-    b3 = k.const(b3_val, device=dev)
-    a_c = k.const(a_val, device=dev)
-    t0, t1, t2, m3, m4, m5 = k.mul_many(
-        [
-            (X1, X2),
-            (Y1, Y2),
-            (Z1, Z2),
-            (X1 + Y1, X2 + Y2),
-            (Y1 + Z1, Y2 + Z2),
-            (X1 + Z1, X2 + Z2),
-        ]
-    )
-    xy, yz, xz = k.sub_many(
-        [(m3, t0 + t1), (m4, t1 + t2), (m5, t0 + t2)], k=4
-    )  # X1Y2+X2Y1, Y1Z2+Y2Z1, X1Z2+X2Z1; each < 6p
-    axz, b3z, az, b3xz = k.mul_many([(xz, a_c), (t2, b3), (t2, a_c), (xz, b3)])
-    d = axz + b3z  # a*xz + b3*Z1Z2, < 4p lazy
-    X3t = k.sub(t1, d, k=4)  # Y1Y2 - d, < 6p
-    Z3t = t1 + d  # Y1Y2 + d, < 6p lazy
-    e = t0 + t0 + t0 + az  # 3*X1X2 + a*Z1Z2, < 8p lazy
-    t2m = k.sub(t0, az, k=2)  # X1X2 - a*Z1Z2, < 4p
-    (at2m,) = k.mul_many([(t2m, a_c)])
-    f = b3xz + at2m  # b3*xz + a*(X1X2 - a*Z1Z2), < 4p lazy
-    y3a, ef, w0, xyx3, xye, yzz3 = k.mul_many(
-        [(X3t, Z3t), (e, f), (yz, f), (xy, X3t), (xy, e), (yz, Z3t)]
-    )
-    Y3 = y3a + ef  # < 4p lazy
-    X3 = k.sub_exact(xyx3, w0, k=2)  # < 4p
-    Z3 = yzz3 + xye  # < 4p lazy
-    return tuple(k.reduce2p_many([X3, Y3, Z3], bound_k=4))
-
-
 def horner_plain(k, b3_val, sums, c: int, a_val=0):
     """Plain version of the Horner kernel (csrc/horner.cu): from res =
     (0 : 1 : 0), for each window from the top, c runs of the doubling
@@ -693,32 +669,54 @@ def capture_step_plain(k, b3_val, a_val, acc, xy, cap=None, jk=None, src=None, k
     return acc, cap
 
 
+def _where(mask, a, b):
+    return tuple(torch.where(mask, x, y) for x, y in zip(a, b))
+
+
 def scalar_mul_plain(k, b3_val, pt, bits, a_val=0):
-    """Plain version of the scalar-multiplication kernel: the select loop
-    of `groth16_tpu/curves/point.py:CurveDevice.scalar_mul_bits` over the
-    plain K4/K5, from acc = (0 : 1 : 0): for each bit i, acc = add(acc,
-    base) where bits[.., i] is set, then base = add(base, base)."""
+    """Plain version of the scalar-multiplication kernel (csrc/horner.cu:
+    scalar_mul_kernel) with windows of c = SCALAR_MUL_WINDOW bits:
+    the table T[j] = j P (T[2j] = dbl(T[j]), T[2j + 1] = add(T[2j], P)),
+    then per lane res = T of its top non-zero digit ((0 : 1 : 0) where all
+    are zero) and, for each lower window, c doublings and, where its digit
+    d != 0, the addition of T[d]: the programs of curves/formulas.py in
+    the kernel's order, so its digits.  The same points mod p as the
+    select loop of `groth16_tpu/curves/point.py:CurveDevice.scalar_mul_bits`,
+    in other representatives."""
+    X = pt[0]
     if bits.is_cuda:
         PLAIN_CALLS[f"scalar_mul_{_group(k)}"] += 1
-    X = pt[0]
-    lanes = X.shape[-1]
-    acc = (
-        k.zero((lanes,), device=X.device),
-        k.one((lanes,), device=X.device).contiguous(),
-        k.zero((lanes,), device=X.device),
-    )
-    base = pt
+    dbl, add = formulas.programs(k.spec, k.tower_deg, getattr(k, "nr_int", 0), a_val, b3_val)
+    c = SCALAR_MUL_WINDOW
+    lanes, dev = X.shape[-1], X.device
+    digits = window_digits(bits, c).to(dev)
+    table = [tuple(pt)]  # table[j - 1] = T[j]
+    for j in range(2, 1 << c):
+        if j % 2:
+            table.append(formulas.run_plain(add, (table[j - 2], table[0])))
+        else:
+            table.append(formulas.run_plain(dbl, (table[j // 2 - 1],)))
+    stacked = [torch.stack(xs, dim=-1) for xs in zip(*table)]  # [*coords, lanes, 2^c - 1]
+    lane = torch.arange(lanes, device=dev)
 
-    def add(p1, p2):
-        if a_is_zero(a_val):
-            return add_plain(k, b3_val, p1, p2)
-        return add_general_rounds_plain(k, b3_val, a_val, p1, p2)
+    def entry(d):  # T[d] of each lane (T[1] where d = 0, unused)
+        return tuple(x[..., lane, (d - 1).clamp(min=0)].contiguous() for x in stacked)
 
-    for i in range(bits.shape[-1]):
-        take = (bits[..., i] & 1).bool()
-        acc = tuple(torch.where(take, s, a) for s, a in zip(add(acc, base), acc))
-        base = add(base, base)
-    return acc
+    res = (k.zero((lanes,), device=dev), k.one((lanes,), device=dev).contiguous(), k.zero((lanes,), device=dev))
+    started = torch.zeros(lanes, dtype=torch.bool, device=dev)
+    for w in reversed(range(digits.shape[1])):
+        d = digits[:, w]
+        nz = d != 0
+        if bool(started.any()):
+            r = res
+            for _ in range(c):
+                r = formulas.run_plain(dbl, (r,))
+            if bool((started & nz).any()):
+                r = _where(nz, formulas.run_plain(add, (r, entry(d))), r)
+            res = _where(started, r, res)
+        res = _where(~started & nz, entry(d), res)
+        started = started | nz
+    return res
 
 
 def mixed_add_plain(k, b3_val, p1, xy2):

@@ -32,7 +32,9 @@ a_m b_((c - m) mod D), m < D, times the nonresidue where m + ((c - m) mod
 D) >= D) and, for D > 1, one combination a component after them.
 
 Who runs them: csrc/horner.cu interprets any program (the MSM's Horner
-chain: c doublings and one addition a window); csrc/general_add.cu is
+chain: c doublings and one addition a window; the proof assembly's
+scalar multiplication: a window table of j P, then c doublings and an
+addition of a non-zero digit's entry a window); csrc/general_add.cu is
 general_add written out by hand for the capture scan's throughput, lane
 c of a point computing component c of every slot in this order; run_plain
 is the plain version of both, on 15-bit digits (fields/fp.py, any

@@ -19,10 +19,11 @@ kernels K4/K5 and K6/K7 on the card, their plain versions on the CPU;
 The TPU size gates of the JAX package have no counterpart here: the
 kernels mask their own ragged edge.  `to_affine` inverts every Z of a
 batch with one Fermat inverse (fields/fp.py batch_inv, K1 products).
-`scalar_mul_bits` runs each lane's double-and-add in one launch of the
-scalar-multiplication kernel (its plain select loop on the CPU).  Where
-a != 0, `add` runs the generic-a group kernel, `horner` and
-`scalar_mul_bits` their generic-a forms, and `add_affine` and
+`scalar_mul_bits` runs each lane's scalar multiplication in one launch
+of the scalar-multiplication kernel (fixed windows on Horner's doubling
+and addition programs; its plain version on the CPU).  Where a != 0,
+`add` runs the generic-a group kernel, `horner` and `scalar_mul_bits`
+the generic-a programs, and `add_affine` and
 `capture_step` the group kernel's capture step: the full addition of the
 projective point it rebuilds from the affine row in registers, as the
 JAX package adds the rebuilt point (it has no mixed generic-a formula).
@@ -172,10 +173,13 @@ class CurveDevice:
 
     def scalar_mul_bits(self, pt: Point, bits: torch.Tensor) -> Point:
         """Per-lane variable scalar multiplication: bits int32 [*batch,
-        nbits] little-endian.  The double-and-add select loop (acc =
-        add(acc, base) where the bit is set, base = add(base, base)) in one
-        kernel launch on CUDA tensors, the loop itself on CPU tensors; the
-        same digits either way."""
+        nbits] little-endian.  Fixed windows of c bits, most significant
+        first (cuda_point.scalar_mul_g1/g2: a table of j P, the top
+        non-zero digit's entry, then c doublings and an addition of the
+        digit's entry where it is not zero, a window) in one kernel launch
+        on CUDA tensors, its plain version on CPU tensors; the same digits
+        either way, and the same points mod p as the JAX package's select
+        loop (other representatives)."""
         k = self.k
         flat, shape = self._flat(list(pt))
         n = flat[0].shape[-1]

@@ -38,25 +38,20 @@ KERNEL_LIMBS = (18, 21, 26, 52)
 KP_ROWS = 35  # rows k*p, k = 0..34, of the constant table (csrc/field.cuh)
 
 
-def _tower(v, d: int = 3) -> tuple:
-    """An int or a tower tuple -> d components (zeros appended)."""
-    v = (0 if v is None else v,) if not isinstance(v, tuple) else v
-    return tuple(v) + (0,) * (d - len(v))
+def _tower(v) -> tuple:
+    """An int or an Fq2 tuple -> its two components (0 appended)."""
+    v = (v,) if not isinstance(v, tuple) else v
+    return tuple(v) + (0,) * (2 - len(v))
 
 
 @functools.lru_cache(maxsize=None)
-def kernel_consts(spec: FpSpec, b3_val, device: torch.device, a_val=0, nr=0) -> torch.Tensor:
-    """Constant table read by every kernel (layout: csrc/field.cuh):
+def kernel_consts(spec: FpSpec, b3_val, device: torch.device) -> torch.Tensor:
+    """Constant table read by the 15-bit kernels (layout: csrc/field.cuh):
     rows k*p for k = 0..34 (exact digits), then, in Montgomery form, b3's
-    components c0, c1 (G1 and K1 leave them zero), one (R mod p), b3's
-    c2 (Fq3), the curve coefficient a as three rows (the generic-a law;
-    zero where a = 0) and the tower's nonresidue nr (the Fq2 product of
-    the generic-a law for |nr| > 16)."""
+    components c0, c1 (zero for G1) and one (R mod p)."""
     L = spec.n_limbs
     rows = [int_to_limbs(k * spec.modulus, L) for k in range(KP_ROWS)]
-    b3 = _tower(b3_val)
-    vals = b3[:2] + (1, b3[2]) + _tower(a_val) + (nr,)
-    rows += [int_to_limbs(spec.to_mont_int(v % spec.modulus), L) for v in vals]
+    rows += [int_to_limbs(spec.to_mont_int(v % spec.modulus), L) for v in _tower(b3_val) + (1,)]
     return torch.tensor(rows, dtype=torch.int32).reshape(-1).to(device)
 
 

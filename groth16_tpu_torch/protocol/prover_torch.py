@@ -64,9 +64,11 @@ def upload(host: torch.Tensor, device: torch.device) -> torch.Tensor:
 def scalar_bits(values: Sequence[int], device) -> torch.Tensor:
     """Host ints -> int32 [len(values), nbits] little-endian bits on
     `device` (the JAX package's `scalar_bits_array`, one row a scalar).
-    nbits is the longest value's bit length: a bit above every value's top
-    leaves each running sum of the double-and-add as it is, so the digits
-    equal those of the curve order's full width."""
+    nbits is the longest value's bit length: the scalar multiplication
+    starts each lane at its top non-zero window digit, and zero bits above
+    every value's top only add zero digits above it (the windows are cut
+    from bit 0 up), so the digits equal those of the curve order's full
+    width."""
     nbits = max(1, max(v.bit_length() for v in values))
     bits = np.array([[(v >> i) & 1 for i in range(nbits)] for v in values], dtype=np.int32)
     return upload(torch.from_numpy(bits), torch.device(device))

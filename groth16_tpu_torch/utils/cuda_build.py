@@ -36,11 +36,10 @@ _LIBS: Dict[str, Tuple[str, Tuple[str, ...]]] = {
 # From this many digits on, the scans K2/K3 (one thread a column, 15-bit
 # digits) call the Montgomery product instead of inlining it
 # (csrc/field.cuh: G16_OUTLINE_MUL): inlined, an L = 26 one-thread kernel
-# on digits took ptxas 12-15 minutes.  The group forms (K4, K5, K7) and the
-# scalar multiplication inline it at every L (each has one call site; the
-# generic-a law over Fq2 with |nr| > 16 has a second, its product by the
-# nonresidue).  The Horner kernel and the generic-a word kernel inline
-# the word product (L = 21 and one call site a program step).
+# on digits took ptxas 12-15 minutes.  The group forms (K4, K5, K7) inline
+# it at every L (each has one call site).  The Horner and
+# scalar-multiplication kernels and the generic-a word kernel inline the
+# word product (one call site a program step).
 OUTLINE_MUL_MIN_LIMBS = 26
 # From this many digits on, K6 (one thread a point on 32-bit words) calls
 # its word product instead of inlining its 13 copies (csrc/field.cuh:
@@ -53,20 +52,14 @@ def _formula_defines(n_limbs: int, deg: int, nr: int) -> Tuple[str, ...]:
     return (f"-DG16_LIMBS={n_limbs}", f"-DG16_D={deg}", f"-DG16_NR={nr}")
 
 
-def point_add_variant(n_limbs: int, deg: int, mixed: bool, nr: int = 0, general: bool = False) -> str:
-    """Library of one point-add kernel: G1 over Fq (deg 1, L digits) or G2
-    over Fq2 = Fq[u]/(u^2 - nr) (deg 2) or Fq3 = Fq[v]/(v^3 - nr) (deg 3),
-    full (K4/K5, and the scalar multiplication) or mixed (K6/K7);
-    `general`: the scalar multiplication's generic-a law alone (MNT's
-    a != 0, its value a row of the constant table, so one G1 library
-    serves MNT4 and MNT6)."""
+def point_add_variant(n_limbs: int, deg: int, mixed: bool, nr: int = 0) -> str:
+    """Library of one a = 0 point-add kernel: G1 over Fq (deg 1, L digits)
+    or G2 over Fq2 = Fq[u]/(u^2 - nr) (deg 2), full (K4/K5) or mixed
+    (K6/K7)."""
     if deg == 1:
         nr = 0  # the G1 kernels never read it: one library for every curve
     name = f"point_add_L{n_limbs}_d{deg}_{'mixed' if mixed else 'full'}_nr{nr}".replace("-", "m")
     defines = _formula_defines(n_limbs, deg, nr) + (f"-DG16_MIXED={int(mixed)}",)
-    if general:
-        name += "_ga"
-        defines += ("-DG16_GENERAL_A=1",)
     if mixed and deg == 1 and n_limbs >= OUTLINE_MUL_W_MIN_LIMBS:
         defines += ("-DG16_OUTLINE_MUL_W",)
     _LIBS.setdefault(name, ("point_add.cu", defines))
@@ -86,9 +79,10 @@ def general_add_variant(n_limbs: int, deg: int, nr: int = 0) -> str:
 
 
 def horner_variant(n_limbs: int) -> str:
-    """Library of the Horner kernel (csrc/horner.cu) at L digits: it
-    interprets the formula programs of curves/formulas.py, so one
-    library serves every law, field degree and nonresidue at that L."""
+    """Library of the Horner and scalar-multiplication kernels
+    (csrc/horner.cu) at L digits: they interpret the formula programs of
+    curves/formulas.py, so one library serves every law, field degree and
+    nonresidue at that L."""
     name = f"horner_L{n_limbs}"
     _LIBS.setdefault(name, ("horner.cu", (f"-DG16_LIMBS={n_limbs}",)))
     return name
@@ -108,15 +102,15 @@ def suffix_scan_variant(n_limbs: int, deg: int, nr: int = 0) -> str:
 
 
 def curve_variants(c) -> list:
-    """Every library the prove and the device setup of curve c (a
-    CurveParams) load: K1, the Horner kernel at Fq's L, the full and the
-    mixed point additions and the suffix scan over Fq (G1), and, where G2
-    lies over Fq2 (BN, BLS12), the same three over Fq2 with the curve's
-    nonresidue.  Where G2 lies over Fq itself (BW6-761) it runs G1's
-    libraries with its own b3, so nothing over Fq2 is built.  Where a != 0
-    (MNT4, MNT6) the prove takes the capture scan on the full addition,
-    as the JAX package does: K1, Horner, the generic-a group kernel and
-    the scalar multiplication's generic-a library over Fq and over G2's
+    """Every library the prove, the device assembly and the device setup
+    of curve c (a CurveParams) load: K1, the Horner and
+    scalar-multiplication kernels at Fq's L, the full and the mixed point
+    additions and the suffix scan over Fq (G1), and, where G2 lies over
+    Fq2 (BN, BLS12), the same three over Fq2 with the curve's nonresidue.
+    Where G2 lies over Fq itself (BW6-761) it runs G1's libraries with its
+    own b3, so nothing over Fq2 is built.  Where a != 0 (MNT4, MNT6) the
+    prove takes the capture scan on the full addition, as the JAX package
+    does: K1, Horner and the generic-a group kernel over Fq and over G2's
     Fq2 (MNT4) or Fq3 (MNT6), no mixed addition and no scan."""
     from groth16_tpu_torch.fields.spec import make_spec
 
@@ -124,9 +118,7 @@ def curve_variants(c) -> list:
     if c.a % c.p:
         deg2, nr = c.g2_field_degree, c.fp2_nonresidue
         return ["mont_mul", horner_variant(n_limbs),
-                general_add_variant(n_limbs, 1), general_add_variant(n_limbs, deg2, nr),
-                point_add_variant(n_limbs, 1, False, 0, True),
-                point_add_variant(n_limbs, deg2, False, nr, True)]
+                general_add_variant(n_limbs, 1), general_add_variant(n_limbs, deg2, nr)]
     if c.g2_over_base:
         degs, nr = (1,), 0
     else:

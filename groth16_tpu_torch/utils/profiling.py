@@ -143,6 +143,21 @@ def msm_work_point_adds(n: int, scalar_bits: int, window_bits: int, signed: bool
     return windows * (n + 2 * B) + windows * (window_bits + 1)
 
 
+def scalar_mul_steps(digits, c: int) -> list:
+    """(doublings, additions) of each lane of the fixed-window scalar
+    multiplication (csrc/horner.cu: scalar_mul_kernel) on c-bit window
+    digits [lanes, windows] (window 0 first, cuda_point.window_digits):
+    the table's 2^(c - 1) - 1 of each, then below the top non-zero digit c
+    doublings a window and an addition a non-zero digit."""
+    table = (1 << (c - 1)) - 1
+    out = []
+    for row in digits.tolist():
+        nz = [w for w, d in enumerate(row) if d]
+        top = nz[-1] if nz else 0
+        out.append((table + top * c, table + len(nz[:-1])))
+    return out
+
+
 def ntt_butterflies(n: int) -> int:
     """Butterflies of one radix-2 NTT of size n: n/2 a stage, log2 n stages."""
     return (n // 2) * max(1, (n - 1).bit_length())

@@ -100,11 +100,10 @@ def test_bw6_field_engine_and_libraries():
         "mont_mul", "horner_L26", "point_add_L26_d1_full_nr0", "point_add_L26_d1_mixed_nr0",
         "point_add_L26_d2_full_nrm5", "point_add_L26_d2_mixed_nrm5", "suffix_scan_L26_d1_nr0",
         "suffix_scan_L26_d2_nrm5"]
-    # a != 0 (MNT): K1, Horner, the generic-a group kernel and the scalar
-    # multiplication's generic-a libraries, over Fq and G2's Fq3
+    # a != 0 (MNT): K1, Horner (and the scalar multiplication) and the
+    # generic-a group kernel over Fq and G2's Fq3
     assert curve_variants(tget_curve("mnt6_298")) == [
-        "mont_mul", "horner_L21", "general_add_L21_d1_nr0", "general_add_L21_d3_nr5",
-        "point_add_L21_d1_full_nr0_ga", "point_add_L21_d3_full_nr5_ga"]
+        "mont_mul", "horner_L21", "general_add_L21_d1_nr0", "general_add_L21_d3_nr5"]
 
 
 def test_bw6_point_additions_and_k6_words():

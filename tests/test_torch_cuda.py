@@ -508,15 +508,18 @@ def test_setup_device_on_the_card_matches_the_exact_setup(dev):
 @pytest.mark.parametrize("group", ["g1", "g2"])
 def test_scalar_mul_kernel_matches_plain(dev, curve, group, lanes, nbits):
     """The scalar-multiplication kernel in one launch against its plain
-    version (the select loop of additions it replaces): lanes with all
-    bits zero and all one, and lanes of one warp with different bits;
-    the first lanes also against the exact engine."""
+    version (the same windows on the same programs), digit for digit:
+    lanes with all bits zero and all one, a lane whose point is infinity
+    (lane 2), lanes with different bits, bit counts that the window bits
+    do not divide (254, 255: a short top window); the first lanes also
+    against the exact engine."""
     cv = get_curve(curve)
     g2 = group == "g2"
     g = (codec.g2_ops if g2 else codec.g1_ops)(cv)
     to_dev = codec.g2_to_device if g2 else codec.g1_to_device
     walk = _batches(curve, g2, min(lanes, 8) + 5, seed=lanes)[0][: min(lanes, 8)]
-    pts = to_dev(cv, [walk[i % len(walk)] for i in range(lanes)], dev)
+    lane_pts = [None if i == 2 else walk[i % len(walk)] for i in range(lanes)]
+    pts = to_dev(cv, lane_pts, dev)
     rng = np.random.default_rng(lanes * nbits)
     bits = rng.integers(0, 2, (lanes, nbits), dtype=np.int32)
     bits[0] = 0
@@ -539,7 +542,7 @@ def test_scalar_mul_kernel_matches_plain(dev, curve, group, lanes, nbits):
     scalars = [int("".join(str(int(b)) for b in row.tolist()[::-1]), 2) for row in bits[:m].cpu()]
     dec = codec.g2_from_device if g2 else codec.g1_from_device
     first = tuple(x[..., :m] for x in got)
-    assert dec(cv, g, first) == [mul(walk[i % len(walk)], s) if s else None for i, s in enumerate(scalars)]
+    assert dec(cv, g, first) == [mul(p, s) if s and p is not None else None for p, s in zip(lane_pts, scalars)]
 
 
 @pytest.mark.parametrize("curve", ["bn254", "bls12_381", "bls12_377", "bw6_761"])
@@ -607,8 +610,8 @@ def test_generic_a_kernels_match_plain(dev, curve, group):
     """The generic-a law (a != 0) on the card: the group kernel at 1, 3,
     33 and 4,101 points with the special lanes (P + P, P + (-P), P + inf,
     inf + P, inf + inf), Horner at c = 13 over 23 windows of 3 lanes and
-    the scalar multiplication of 3 lanes at 64 bits (one lane of zeros),
-    each digit-equal to its plain version and counted as a generic-a
+    the scalar multiplication of 4 lanes at 62 bits (a short top window;
+    one lane of zeros, one whose point is infinity), each digit-equal to its plain version and counted as a generic-a
     launch over Fq, MNT4's Fq2 or MNT6's Fq3; the additions and the first
     Horner lane also against the exact engine."""
     cv = get_curve(curve)
@@ -648,9 +651,9 @@ def test_generic_a_kernels_match_plain(dev, curve, group):
             acc = add(acc, acc)
         acc = add(acc, want[w])
     assert dec(cv, g, tuple(x[..., :1] for x in h)) == [acc]
-    bits = torch.from_numpy(np.random.default_rng(D).integers(0, 2, (3, 64), dtype=np.int32))
+    bits = torch.from_numpy(np.random.default_rng(D).integers(0, 2, (4, 62), dtype=np.int32))
     bits[1] = 0
-    pts = tuple(x[..., :3].contiguous() for x in p1)
+    pts = tuple(torch.cat([x[..., :3], i], dim=-1) for x, i in zip(p1, g.infinity((1,), device=dev)))
     before = cuda_point.GENERAL_A_LAUNCHES[f"scalar_mul_d{D}"]
     sm = g.scalar_mul_bits(pts, bits.to(dev))
     torch.cuda.synchronize()
