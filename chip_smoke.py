@@ -86,6 +86,32 @@ Phases, each printing one JSON line:
             proof; the device assembly alone timed, counted and profiled
             beside the host assembly, to_affine alone; ProofStream(depth=2)
             over 4 jobs yields the host-assembly proofs in order;
+  multi_device  the sharded path (groth16_tpu_torch/par/) on the same 2^16
+            key: first, in this process, K1 at the four-step NTT's
+            shapes on 2 ranks (the twiddle tile, the first stage's
+            periodic twiddles, the coset scale) and K2/K3 on a 2-rank key
+            shard (the 4-lane stack, the G2 tail's half) at the window
+            msm_plan picks for them, against their plain versions and
+            timed (their rows also in the kernels line, as
+            "sharded_2_ranks"); then its ranks, started by
+            par.mesh.run_ranks (the key pickled
+            to them): ShardedProver at world size 1 over NCCL, then at 2
+            ranks sharing the card over gloo (collectives through host
+            copies), each rank's counters set to 0 just before its
+            first prove and read just after (the kernels
+            of the main path and the scalar multiplication must launch, no
+            plain version may run) and timed over a second by phase, with
+            its key shard's points and bytes (half the stack at 2 ranks),
+            the bytes it handed to each collective and its peak memory;
+            every rank's proof must equal the main path's for the same r
+            and s and verify; at 2 ranks also ShardedNtt's four
+            transforms at 2^16 equal to NttDomain's, msm_sharded_lanes on
+            the key's 4-lane stack equal as affine points to
+            msm_device_lanes of the whole stack, ElasticProver (a device
+            loss injected at attempt 0 shrinks to 1 rank, an injected SDC
+            is retried, both to the same proof; localize_faults finds no
+            shard), prove_batch_sharded of 4 equal proof by proof to
+            prove_batch on one rank, and dryrun_multichip(2) on the card;
   device_setup  protocol.generator_torch.setup_device of the same 2^16 bn254
             circuit with the same seed, counters set to 0 just before and read
             just after (K1, K4, K5 must launch): its key must equal the exact
@@ -684,6 +710,58 @@ K1_SIZES_BW6 = (
 )
 
 
+def _lazy_operand(rng, spec, n, device):
+    """[L, n] lazy operand: digit-wise sums of two exact values < p (4,096
+    distinct columns, tiled)."""
+    import numpy as np
+    import torch
+
+    from groth16_tpu_torch.fields.spec import encode
+
+    return sum(
+        torch.from_numpy(encode(
+            [int.from_bytes(rng.bytes(max(48, (spec.modulus.bit_length() + 7) // 8)), "little")
+             for _ in range(4096)], spec, mont=False
+        ).astype(np.int32))
+        for _ in range(2)
+    ).to(device).repeat(1, max(1, n // 4096))[:, :n].contiguous()
+
+
+def _k1_row(spec, a, b, n, h, sweep=True) -> dict:
+    """K1 on a [L, n] and b ([L, n], or [L, h] read with period h):
+    digit-equal to its plain version, then timed (queued_ms) beside it
+    and its bound (an [L, h] operand counted once); where `sweep`, also
+    at each of the kernel's elements a thread at that L
+    (cuda_fp.KERNEL_VECTORS).  -> the row's numbers."""
+    import torch
+
+    from groth16_tpu_torch.fields import cuda_fp
+    from groth16_tpu_torch.utils.profiling import mont_mul_word_ops
+
+    L = spec.n_limbs
+    run = lambda: cuda_fp.mont_mul(spec, a, b, n)  # noqa: E731
+    got, want = run(), cuda_fp.mont_mul_plain(spec, a, b, n)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(f"K1 at L = {L}, n = {n}, h = {h}: kernel and plain version disagree")
+    err = max_abs_err([got], [want])
+    del got, want
+    ms, queued = queued_ms(run)
+    row = {"tolerance": 0, "max_abs_err": err, "ms": ms, "queued_before_spin_ended": queued,
+           "elements_per_thread": cuda_fp.elements_per_thread(L, n)}
+    if sweep:
+        row["ms_by_elements_per_thread"] = {}
+        chosen = cuda_fp.elements_per_thread
+        try:
+            for v in cuda_fp.KERNEL_VECTORS[L]:
+                cuda_fp.elements_per_thread = lambda L_, n_, v=v: v  # noqa: E731
+                row["ms_by_elements_per_thread"][v] = queued_ms(run)[0]
+        finally:
+            cuda_fp.elements_per_thread = chosen
+    row["plain_ms"] = time_ms(lambda: cuda_fp.mont_mul_plain(spec, a, b, n), reps=3)
+    return {**row, **bound((2 * n + (h or n)) * L * 4, n * mont_mul_word_ops(L)), "card": card_line()}
+
+
 def _mont_mul_kernel(rng, device, sizes=K1_SIZES):
     """K1 at each of `sizes`: digit-equal to its plain version on lazy
     operands (digit-wise sums of two exact values < p), then timed
@@ -691,55 +769,18 @@ def _mont_mul_kernel(rng, device, sizes=K1_SIZES):
     the kernel's elements a thread at that L (cuda_fp.KERNEL_VECTORS); the
     bound counts an [L, h] operand once.  Returns the kernels-line entry
     (the first size's row)."""
-    import numpy as np
-    import torch
-
     from groth16_tpu_torch.curves.params import get_curve
-    from groth16_tpu_torch.fields import cuda_fp
-    from groth16_tpu_torch.fields.spec import encode, make_spec
-    from groth16_tpu_torch.utils.profiling import mont_mul_word_ops
+    from groth16_tpu_torch.fields.spec import make_spec
 
     entry = None
     for label, log_n, h in sizes:
         curve, field = label.split(".")
         spec = make_spec(get_curve(curve).p if field == "Fq" else get_curve(curve).r)
-        L, n = spec.n_limbs, 1 << log_n
-        # lazy operands: digit-wise sums of two exact values < p (4,096
-        # distinct columns, tiled)
-        a, b = (
-            sum(
-                torch.from_numpy(encode(
-                    [int.from_bytes(rng.bytes(max(48, (spec.modulus.bit_length() + 7) // 8)), "little")
-                     for _ in range(4096)], spec, mont=False
-                ).astype(np.int32))
-                for _ in range(2)
-            ).to(device).repeat(1, max(1, n // 4096))[:, :n].contiguous()
-            for _ in range(2)
-        )
+        n = 1 << log_n
+        a, b = (_lazy_operand(rng, spec, n, device) for _ in range(2))
         if h is not None:
             b = b[:, :h].contiguous()
-        run = lambda: cuda_fp.mont_mul(spec, a, b, n)  # noqa: E731
-        got, want = run(), cuda_fp.mont_mul_plain(spec, a, b, n)
-        torch.cuda.synchronize()
-        if not torch.equal(got, want):
-            raise AssertionError(f"K1 {label} at n = 2^{log_n}, h = {h}: kernel and plain version disagree")
-        err = max_abs_err([got], [want])
-        del got, want
-        ms, queued = queued_ms(run)
-        vec = cuda_fp.elements_per_thread(L, n)
-        sweep = {}
-        chosen = cuda_fp.elements_per_thread
-        try:
-            for v in cuda_fp.KERNEL_VECTORS[L]:
-                cuda_fp.elements_per_thread = lambda L_, n_, v=v: v  # noqa: E731
-                sweep[v] = queued_ms(run)[0]
-        finally:
-            cuda_fp.elements_per_thread = chosen
-        plain_ms = time_ms(lambda: cuda_fp.mont_mul_plain(spec, a, b, n), reps=3)
-        row = {"kernel": "K1 mont_mul", "field": label, "n": n, "period": h, "tolerance": 0,
-               "max_abs_err": err, "ms": ms, "queued_before_spin_ended": queued,
-               "elements_per_thread": vec, "ms_by_elements_per_thread": sweep, "plain_ms": plain_ms,
-               **bound((2 * n + (h or n)) * L * 4, n * mont_mul_word_ops(L)), "card": card_line()}
+        row = {"kernel": "K1 mont_mul", "field": label, "n": n, "period": h, **_k1_row(spec, a, b, n, h)}
         emit({"phase": "kernels", **row})
         if entry is None:
             entry = {"name": "mont_mul", "route": "cuda", "source": "groth16_tpu_torch/csrc/mont_mul.cu",
@@ -1322,79 +1363,96 @@ def scan_nbytes(R, steps, C, ce, live):
     return (R * steps * ce + live * ce + R * steps * 3 * ce + R * C * 3 * ce) * 4
 
 
+def _scan_specs(c, g1_pts, g2_pts):
+    """(name, tag, curve ops, points, TPU kernel) of K2 on `g1_pts` and
+    K3 on `g2_pts` (K2 with G2's b3 where G2 lies over Fq)."""
+    from groth16_tpu_torch.curves import codec
+
+    return (
+        ("suffix_scan_g1", "K2", codec.g1_ops(c), g1_pts, "groth16_tpu/msm/pallas_scan.py:126"),
+        ("suffix_scan_g2", "K3", codec.g2_ops(c), g2_pts, "groth16_tpu/msm/pallas_scan.py:352"),
+    )
+
+
 def _scan_kernels(dpk, c, rng, device, sweep=True):
     """K2/K3 against their plain version at the shapes the prove gives
     them, all K steps of each column: the G1 window group with the most
-    points, and the G2 MSM.  Both run at the S the card chooses
-    (`cuda_scan.scan_segments`), the plain version at the same S, timed
-    from the one run that is checked.  Each is timed at S = 1 and at the
-    chosen S, on filled rows and on the key's own rows, and, where
-    `sweep`, over SCAN_SWEEP."""
+    points, and the G2 MSM (_scan_check).  Returns their kernels-line
+    entries."""
+    big = max(range(len(dpk.g1_groups)), key=lambda i: dpk.g1_groups[i][2].numel())
+    entries = {}
+    g2_pts = tuple(x[..., None, :] for x in dpk.b_g2_tail)
+    for name, tag, g, pts, replaces in _scan_specs(c, dpk.g1_groups[big], g2_pts):
+        row = _scan_check(tag, name, g, pts, c, rng, device, sweep)
+        if row["kernel"].startswith("K2 (G2"):
+            replaces = "groth16_tpu/msm/pallas_scan.py:126"
+        emit({"phase": "kernels", **row})
+        entries[name] = {
+            "name": name, "route": "cuda", "source": "groth16_tpu_torch/csrc/suffix_scan.cu",
+            "replaces": replaces, "rows_steps_chunks": row["rows_steps_chunks"], "segments": row["segments"],
+            **_kline(row),
+        }
+    return entries
+
+
+def _scan_check(tag, name, g, pts, c, rng, device, sweep=True) -> dict:
+    """K2/K3 on the points `pts` ([*coords, lanes, n]) at the rows, steps
+    and chunks msm_plan gives that MSM, all K steps of each column, at the
+    S the card chooses (`cuda_scan.scan_segments`), against the plain
+    version at the same S, timed from the one run that is checked.  Timed
+    at S = 1 and at the chosen S, on filled rows and on the key's own
+    rows, and, where `sweep`, over SCAN_SWEEP.  -> the row."""
     import torch
 
-    from groth16_tpu_torch.curves import codec, cuda_point
+    from groth16_tpu_torch.curves import cuda_point
     from groth16_tpu_torch.msm import cuda_scan
     from groth16_tpu_torch.msm.pippenger import msm_plan
 
     sbits = c.r.bit_length()
-    big = max(range(len(dpk.g1_groups)), key=lambda i: dpk.g1_groups[i][2].numel())
-    specs = (
-        ("suffix_scan_g1", "K2", codec.g1_ops(c), dpk.g1_groups[big],
-         "groth16_tpu/msm/pallas_scan.py:126"),
-        ("suffix_scan_g2", "K3", codec.g2_ops(c), tuple(x[..., None, :] for x in dpk.b_g2_tail),
-         "groth16_tpu/msm/pallas_scan.py:352"),
-    )
-    entries = {}
-    for name, tag, g, pts, replaces in specs:
-        k = g.k
-        D, L = k.tower_deg, k.spec.n_limbs
-        if tag == "K3" and D == 1:  # G2 over Fq: K2 with G2's b3
-            tag, replaces = "K2 (G2's b3)", specs[0][4]
-        nr = getattr(k, "nr_int", None)
-        ce = D * L
-        lanes, n = g.batch_shape(pts)
-        plan = msm_plan(g, n, lanes, sbits)
-        R, K, C = lanes * plan.wg, plan.K, plan.C
-        npad = K * C
-        pts = tuple(x[..., :npad] for x in pts)
-        rows = _scan_rows(g, pts, R, npad, rng, device)
-        key_rows = _scan_rows(g, pts, R, npad, rng, device, fill=False)
-        S = cuda_scan.scan_segments(R, K, C, device)
+    k = g.k
+    D, L = k.tower_deg, k.spec.n_limbs
+    if tag == "K3" and D == 1:  # G2 over Fq: K2 with G2's b3
+        tag = "K2 (G2's b3)"
+    nr = getattr(k, "nr_int", None)
+    ce = D * L
+    lanes, n = g.batch_shape(pts)
+    plan = msm_plan(g, n, lanes, sbits)
+    R, K, C = lanes * plan.wg, plan.K, plan.C
+    npad = K * C
+    pts = tuple(x[..., :npad] for x in pts)
+    rows = _scan_rows(g, pts, R, npad, rng, device)
+    key_rows = _scan_rows(g, pts, R, npad, rng, device, fill=False)
+    S = cuda_scan.scan_segments(R, K, C, device)
 
-        def run(r, seg):
-            if D == 1:
-                return cuda_scan.suffix_scan_g1_rows(k.spec, g.b3_val, r, K, C, segments=seg)
-            return cuda_scan.suffix_scan_g2_rows(k.spec, nr, g.b3_val, r, K, C, segments=seg)
+    def run(r, seg):
+        if D == 1:
+            return cuda_scan.suffix_scan_g1_rows(k.spec, g.b3_val, r, K, C, segments=seg)
+        return cuda_scan.suffix_scan_g2_rows(k.spec, nr, g.b3_val, r, K, C, segments=seg)
 
-        plain_ops = cuda_point._plain_ops(k.spec, nr)
-        got = run(rows, S)
-        want, plain_ms = timed_once(lambda: cuda_scan.suffix_scan_plain(plain_ops, g.b3_val, rows, K, C, S))
-        got, want = [got[0], *got[1]], [want[0], *want[1]]
-        if not all(torch.equal(x, y) for x, y in zip(got, want)):
-            raise AssertionError(f"{tag} {name} on {c.name} at S = {S}: kernel and plain version disagree")
-        ms, ms_s1 = time_ms(lambda: run(rows, S)), time_ms(lambda: run(rows, 1))
-        key_ms, key_ms_s1 = time_ms(lambda: run(key_rows, S)), time_ms(lambda: run(key_rows, 1))
-        # a step whose affine operand is infinity passes the accumulator on
-        live, key_live = (int((x[..., ce:] != 0).any(dim=-1).sum()) for x in (rows, key_rows))
-        nbytes = scan_nbytes(R, npad, C, ce, live)
-        key_bound = point_bound(scan_nbytes(R, npad, C, ce, key_live), key_live, L, D == 2, mixed=True)
-        row = {"kernel": f"{tag} {name}", "curve": c.name, "rows_steps_chunks": [R, K, C],
-               "segments": S, "live": live, "tolerance": 0,
-               "max_abs_err": max_abs_err(got, want), "ms": ms, "ms_s1": ms_s1, "plain_ms": plain_ms,
-               **point_bound(nbytes, live, L, D == 2, mixed=True),
-               "key_rows": {"live": key_live, "ms": key_ms, "ms_s1": key_ms_s1,
-                            "bound_ms": key_bound["bound_ms"], "bound_by": key_bound["bound_by"]}}
-        if sweep:
-            sweep_s = sorted({s for s in SCAN_SWEEP if s * SWEEP_MIN_STEPS <= K} | {S})
-            row["sweep_ms"] = {s: time_ms(lambda: run(rows, s), reps=3) for s in sweep_s}
-            row["key_rows"]["sweep_ms"] = {s: time_ms(lambda: run(key_rows, s), reps=3) for s in sweep_s}
-        row["card"] = card_line()
-        emit({"phase": "kernels", **row})
-        entries[name] = {
-            "name": name, "route": "cuda", "source": "groth16_tpu_torch/csrc/suffix_scan.cu",
-            "replaces": replaces, "rows_steps_chunks": [R, K, C], "segments": S, **_kline(row),
-        }
-    return entries
+    plain_ops = cuda_point._plain_ops(k.spec, nr)
+    got = run(rows, S)
+    want, plain_ms = timed_once(lambda: cuda_scan.suffix_scan_plain(plain_ops, g.b3_val, rows, K, C, S))
+    got, want = [got[0], *got[1]], [want[0], *want[1]]
+    if not all(torch.equal(x, y) for x, y in zip(got, want)):
+        raise AssertionError(f"{tag} {name} on {c.name} at S = {S}: kernel and plain version disagree")
+    ms, ms_s1 = time_ms(lambda: run(rows, S)), time_ms(lambda: run(rows, 1))
+    key_ms, key_ms_s1 = time_ms(lambda: run(key_rows, S)), time_ms(lambda: run(key_rows, 1))
+    # a step whose affine operand is infinity passes the accumulator on
+    live, key_live = (int((x[..., ce:] != 0).any(dim=-1).sum()) for x in (rows, key_rows))
+    nbytes = scan_nbytes(R, npad, C, ce, live)
+    key_bound = point_bound(scan_nbytes(R, npad, C, ce, key_live), key_live, L, D == 2, mixed=True)
+    row = {"kernel": f"{tag} {name}", "curve": c.name, "lanes_points": [lanes, n], "rows_steps_chunks": [R, K, C],
+           "segments": S, "live": live, "tolerance": 0,
+           "max_abs_err": max_abs_err(got, want), "ms": ms, "ms_s1": ms_s1, "plain_ms": plain_ms,
+           **point_bound(nbytes, live, L, D == 2, mixed=True),
+           "key_rows": {"live": key_live, "ms": key_ms, "ms_s1": key_ms_s1,
+                        "bound_ms": key_bound["bound_ms"], "bound_by": key_bound["bound_by"]}}
+    if sweep:
+        sweep_s = sorted({s for s in SCAN_SWEEP if s * SWEEP_MIN_STEPS <= K} | {S})
+        row["sweep_ms"] = {s: time_ms(lambda: run(rows, s), reps=3) for s in sweep_s}
+        row["key_rows"]["sweep_ms"] = {s: time_ms(lambda: run(key_rows, s), reps=3) for s in sweep_s}
+    row["card"] = card_line()
+    return row
 
 
 # the device name of a prove's kernel from csrc/ (the profiler's demangled
@@ -1855,6 +1913,167 @@ def phase_device_assembly(prover, vk, cs, rng):
         "card": card_line(),
     })
     return {"device_assembly": launches}
+
+
+MULTI_KERNELS = MAIN_KERNELS + ("scalar_mul_g1", "scalar_mul_g2")  # the sharded prove assembles on the card
+MULTI_BATCH = 4
+MULTI_TIMEOUT_S = 400  # a launch of ranks is ended after this; on one H100 they take 14-25 s
+
+
+def _multi_rank_line(o) -> dict:
+    """A rank's figures from par.dryrun.rank_prove, for the phase's line."""
+    if any(o["plain"].values()):
+        raise AssertionError(f"a plain version ran on the card in a sharded rank: {o['plain']}")
+    if not all(o["launches"][k] > 0 for k in MULTI_KERNELS):
+        raise AssertionError(f"a kernel of the sharded path never launched: {o['launches']}")
+    if not o["steady_equal"]:
+        raise AssertionError("a sharded rank's second proof differs from its first")
+    return {
+        "rank": o["rank"], "index": o["index"], "key_shard": o["key_shard"], "upload_s": o["upload_s"],
+        "first_prove_s": o["first_prove_s"], "steady_prove_s": o["steady_prove_s"], "phases_s": o["phases_s"],
+        "launches": {k: v for k, v in o["launches"].items() if v}, "collective_traffic": o["traffic"],
+        "peak_mem_gib": o["peak_mem_bytes"] and o["peak_mem_bytes"] / 2**30,
+    }
+
+
+def _sharded_kernels(pk, matrices, device, S=2):
+    """The kernels at the shapes the sharded prove on S ranks gives them
+    (rank 0's; every rank's are the same), each against its plain version
+    on the same inputs and timed beside its bound: K1 at the four-step
+    NTT's twiddle tile ([L, n2/S, n1] against the rank's w^(j2 k1) table),
+    at its first length-n1 stage (n/(2S) elements against the stage's
+    twiddle row, read with its period) and at the coset scale of
+    coset_ifft (against the rank's slice of its power table); K2 and K3
+    on rank 0's key shard (the 4-lane stack of n_pad/S points, the G2
+    tail's slice) at the rows, steps and chunks msm_plan picks for them.
+    -> the kernels line's rows at these shapes (K1's: the twiddle
+    tile's), by kernel name."""
+    import numpy as np
+
+    from groth16_tpu_torch.curves.params import get_curve
+    from groth16_tpu_torch.ntt.ntt import NttDomain, _stage_tws
+    from groth16_tpu_torch.par.ntt_cp import _power_slice, _twiddles
+    from groth16_tpu_torch.protocol.device_keys import upload_proving_key
+
+    c = get_curve(CURVE)
+    rng = np.random.default_rng(0x5A4D)
+    domain = NttDomain(c.fr, matrices.num_constraints + matrices.num_instance_variables, device)
+    spec, n, r = domain.spec, domain.size, c.r
+    n1 = 1 << ((domain.log_size + 1) // 2)
+    n2, m = n // n1, n // S
+    shapes = (
+        ("twiddle tile", _twiddles(spec, domain.group_gen, n1, n2, S, 0, device).reshape(spec.n_limbs, m), m),
+        ("first n1-stage", _stage_tws(spec, pow(domain.group_gen, n2, r), n1, device)[0], m // 2),
+        ("coset scale", _power_slice(spec, pow(c.fr.generator, r - 2, r), 0, m, domain.size_inv, device), m),
+    )
+    out = {}
+    for what, b, k1_n in shapes:
+        h = b.shape[-1] if b.shape[-1] < k1_n else None
+        row = {"kernel": f"K1 mont_mul (sharded NTT, S = {S}: {what})", "field": "bn254.Fr", "n": k1_n,
+               "period": h, **_k1_row(spec, _lazy_operand(rng, spec, k1_n, device), b, k1_n, h, sweep=False)}
+        emit({"phase": "kernels", **row})
+        out.setdefault("mont_mul", {"n": k1_n, "period": h, **_kline(row)})
+    dpk = upload_proving_key(pk, matrices, device, shard=(0, S))
+    for name, tag, g, pts, _ in _scan_specs(c, dpk.g1_msm_points, tuple(x[..., None, :] for x in dpk.b_g2_tail)):
+        row = _scan_check(tag, name, g, pts, c, rng, device, sweep=False)
+        row["kernel"] += f" (sharded MSM, rank 0 of {S})"
+        emit({"phase": "kernels", **row})
+        out[name] = {k: row[k] for k in ("lanes_points", "rows_steps_chunks", "segments")} | _kline(row)
+    return out
+
+
+def phase_multi_device(pk, vk, cs, prover, first):
+    """The sharded path on the 2^16 key: the kernels at its shapes
+    (_sharded_kernels), then world size 1 over NCCL, 2 ranks on one card
+    over gloo (see the module docstring).  Returns the launches per
+    kernel of each sharded prove (the NCCL rank's; the two gloo ranks'
+    summed) and _sharded_kernels' rows."""
+    import random
+
+    from groth16_tpu_torch.curves.params import get_curve
+    from groth16_tpu_torch.par import dryrun as dr
+    from groth16_tpu_torch.par.mesh import DATA_AXIS, run_ranks
+    from groth16_tpu_torch.protocol.verifier import prepare_verifying_key, verify_proof
+
+    r, s, want = first
+    matrices, z = cs.to_matrices(), cs.full_assignment()
+    rows = _sharded_kernels(pk, matrices, prover.device)
+    args = (pk, matrices, z, r, s)
+    pvk = prepare_verifying_key(vk)
+
+    def same(proof, what):
+        if not _same(proof, want):
+            raise AssertionError(f"{what}: the sharded proof differs from the single-device proof")
+        if not verify_proof(pvk, proof, [15]):
+            raise AssertionError(f"{what}: the sharded proof does not verify")
+
+    t0 = time.time()
+    (one,) = run_ranks(dr.rank_prove, 1, "nccl", "cuda", *args, None, DATA_AXIS, True, timeout_s=MULTI_TIMEOUT_S)
+    nccl_s = time.time() - t0
+    same(one["proof"], "world size 1 over nccl")
+
+    c_r = get_curve(CURVE).r
+    rnd = random.Random(0x5BA7)
+    coeffs = [rnd.randrange(c_r) for _ in range(1 << LOG_N)]
+    rs = [rnd.randrange(c_r) for _ in range(MULTI_BATCH)]
+    ss = [rnd.randrange(c_r) for _ in range(MULTI_BATCH)]
+    scenarios = [
+        (dr.InjectedFault("loss", (0,)), 3, False),
+        (dr.InjectedFault("sdc", (0,)), 3, False),
+        (None, 3, True),
+    ]
+    calls = [
+        (dr.rank_prove, args + (None, DATA_AXIS, True)),
+        (dr.rank_ntt, (CURVE, coeffs, 5)),
+        (dr.rank_key_msm, (pk, matrices, z)),
+        (dr.rank_elastic, args + (scenarios,)),
+        (dr.rank_batch, (pk, matrices, [z] * MULTI_BATCH, rs, ss)),
+    ]
+    t0 = time.time()
+    ranks = run_ranks(dr.rank_calls, 2, "gloo", "cuda", calls, timeout_s=MULTI_TIMEOUT_S)
+    gloo_s = time.time() - t0
+    n_pad = -(-max(len(pk.h_query), len(pk.l_query), len(pk.a_query) - 1) // 2) * 2
+    for i, (prove, ntt, key_msm, elastic, batch) in enumerate(ranks):
+        same(prove["proof"], f"rank {i} of 2 over gloo")
+        if prove["key_shard"]["g1_points"] != 4 * n_pad // 2:
+            raise AssertionError(f"rank {i} holds {prove['key_shard']} of a 4 x {n_pad} stack")
+        if not all(ntt["equal_single"].values()):
+            raise AssertionError(f"rank {i}: ShardedNtt differs from NttDomain: {ntt['equal_single']}")
+        if not key_msm["equal_affine"]:
+            raise AssertionError(f"rank {i}: msm_sharded_lanes differs from msm_device_lanes")
+        loss, sdc, healthy = elastic
+        for name, e in (("loss", loss), ("sdc", sdc), ("healthy", healthy)):
+            same(e["proof"], f"rank {i}: elastic {name}")
+        if [a.n_devices for a in loss["report"].attempts] != [2, 1] or loss["n_devices"] != 1:
+            raise AssertionError(f"rank {i}: the device loss did not shrink to one rank: {loss['report']}")
+        if [a.ok for a in sdc["report"].attempts] != [False, True]:
+            raise AssertionError(f"rank {i}: the SDC was not retried: {sdc['report']}")
+        if healthy["faults"] != [] or healthy["report"].retried:
+            raise AssertionError(f"rank {i}: the healthy run found faults: {healthy}")
+    batch = ranks[0][4]
+    if ranks[1][4] != batch:
+        raise AssertionError("the ranks' prove_batch_sharded proofs differ")
+    single = prover.prove_batch([z] * MULTI_BATCH, rs, ss)
+    if any(not _same(a, b) for a, b in zip(batch, single)):
+        raise AssertionError("prove_batch_sharded differs from prove_batch on one rank")
+    t0 = time.time()
+    dry = dr.dryrun_multichip(2, device="cuda", backend="gloo")
+    dry_s = time.time() - t0
+    gloo = [_multi_rank_line(rk[0]) for rk in ranks]
+    emit({
+        "phase": "multi_device", "curve": CURVE, "log_n": LOG_N, "card": card_line(),
+        "nccl_world_1": dict(_multi_rank_line(one), wall_s=nccl_s),
+        "gloo_2_ranks_one_card": {"wall_s": gloo_s, "ranks": gloo},
+        "sharded_ntt_2p16": {"equal": True, "sharded_fft_ms": [rk[1]["sharded_fft_ms"] for rk in ranks],
+                             "single_fft_ms": [rk[1]["single_fft_ms"] for rk in ranks]},
+        "key_msm_equal_affine": {"lanes": ranks[0][2]["lanes"], "points_per_rank": ranks[0][2]["points_per_rank"]},
+        "elastic": {"loss_attempts": [a.n_devices for a in ranks[0][3][0]["report"].attempts],
+                    "sdc_attempts": [a.error for a in ranks[0][3][1]["report"].attempts], "faults": []},
+        "batch_sharded_equal_prove_batch": MULTI_BATCH, "dryrun_multichip_2_s": dry_s,
+        "dryrun_proof_verified": dry is not None,
+    })
+    summed = {k: sum(rk[0]["launches"][k] for rk in ranks) for k in ranks[0][0]["launches"]}
+    return {"multi_device": one["launches"], "multi_device_gloo2": summed}, rows
 
 
 def phase_device_setup(pk_exact):
@@ -2632,6 +2851,8 @@ def main() -> int:
     prover, launches, first = phase_main_path(pk, vk, cs, rng, device)
     capture = phase_capture_path(prover, cs, first)
     paths = {**phase_batch(prover, vk, cs, rng), **phase_device_assembly(prover, vk, cs, rng)}
+    multi, multi_rows = phase_multi_device(pk, vk, cs, prover, first)
+    paths.update(multi)
     del prover
     setup = phase_device_setup(pk)
     del pk, vk, cs
@@ -2648,6 +2869,7 @@ def main() -> int:
                    **{p: n.get(name, 0) for p, n in bls.items()},
                    **{p: n.get(name, 0) for p, n in mnt.items()}}
         for curve, other in ((B377_CURVE, b377_rows), (BW6_CURVE, bw6_rows), (BLS_CURVE, bls_rows),
+                             ("sharded_2_ranks", multi_rows),
                              ("L21", mnt_k1), (MNT4_CURVE, mnt_rows[MNT4_CURVE]),
                              (MNT6_CURVE, mnt_rows[MNT6_CURVE])):
             if name in other:

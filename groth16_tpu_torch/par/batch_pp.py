@@ -1,12 +1,20 @@
-"""Pipeline parallelism over proofs on one card.
+"""Batch / pipeline parallelism over proofs.
 
-Port of `ProofStream` of `groth16_tpu/par/batch_pp.py` (SURVEY.md §2.4
-"batch_pp"): up to `depth` proofs' device work is enqueued before the
-host waits on the oldest result.  The CUDA stream is the pipeline: the
-host encodes proof i + 1 and decodes proof i - 1 while the card computes
-proof i.  Each proof is assembled on the card (`TorchProver.prove_encoded`)
-and fetched in one copy (`decode_proof_arrays`).  `prove_batch_sharded`,
-the batch axis over several cards, waits for the multi-device slice.
+Port of `groth16_tpu/par/batch_pp.py` (SURVEY.md §2.4 "batch_pp"):
+
+  1. `prove_batch_sharded` — the batch axis over the ranks of a mesh
+     (par/mesh.py): each rank proves its B/S proofs with the whole key
+     (a `TorchProver`, grouped layout) and the device assembly, with no
+     communication until one all_gather of the six output tensors;
+     every rank then decodes all B proofs, in order.  It composes with
+     par/prover_dp.py (one big proof sharded over ranks) as the two
+     extremes of the mesh layout.
+  2. `ProofStream` — pipelining on one card: up to `depth` proofs'
+     device work is enqueued before the host waits on the oldest result.
+     The CUDA stream is the pipeline: the host encodes proof i + 1 and
+     decodes proof i - 1 while the card computes proof i.  Each proof is
+     assembled on the card (`TorchProver.prove_encoded`) and fetched in
+     one copy (`decode_proof_arrays`).
 
 Resumable long batches (checkpoint every proof) layer on top in
 utils/resume.py.
@@ -15,10 +23,43 @@ utils/resume.py.
 from __future__ import annotations
 
 from collections import deque
-from typing import Iterable, Iterator, Sequence
+from typing import Iterable, Iterator, List, Sequence
 
+import torch
+
+from groth16_tpu_torch.par.collectives import all_gather_leaves
+from groth16_tpu_torch.par.mesh import DATA_AXIS
 from groth16_tpu_torch.protocol.data_structures import Proof
 from groth16_tpu_torch.protocol.prover_torch import TorchProver, decode_proof_arrays
+
+
+def prove_batch_sharded(
+    prover: TorchProver,
+    assignments: Sequence[Sequence[int]],
+    rs: Sequence[int],
+    ss: Sequence[int],
+    mesh,
+    axis=DATA_AXIS,
+) -> List[Proof]:
+    """B proofs, batch axis sharded over `mesh`: rank i proves proofs
+    [i B/S, (i + 1) B/S) on its own card with the whole key (`prover`,
+    built on the mesh's device), then one all_gather of the six output
+    tensors gives every rank all B.  B must be a multiple of the mesh
+    axis size; every rank passes the same arguments and gets the same
+    proofs."""
+    ax = mesh.axis(axis)
+    B, S = len(assignments), ax.size
+    if B % S:
+        raise ValueError(f"prove_batch_sharded: batch {B} not divisible by mesh size {S}")
+    if not len(rs) == len(ss) == B:
+        raise ValueError(f"prove_batch_sharded: {B} assignments, {len(rs)} r and {len(ss)} s")
+    rr = prover.c.r
+    k = B // S
+    mine = range(ax.index * k, (ax.index + 1) * k)
+    outs = [prover.prove_encoded(prover.encode_assignment(assignments[i]), rs[i] % rr, ss[i] % rr) for i in mine]
+    local = [torch.stack([o[j] for o in outs]) for j in range(6)]  # each [B/S, ...]
+    every = [x.reshape((B,) + tuple(x.shape[2:])).cpu() for x in all_gather_leaves(local, ax, "prove_batch_sharded")]
+    return [decode_proof_arrays(prover.curve, tuple(x[i] for x in every)) for i in range(B)]
 
 
 class ProofStream:

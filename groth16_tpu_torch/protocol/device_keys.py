@@ -1,11 +1,14 @@
 """Device-resident ProvingKey mirror (structure-of-arrays limb tensors).
 
-Port of `groth16_tpu/protocol/device_keys.py` with the "grouped" layout
-(the single-device prover's): the four G1 MSMs of a prove
-(a_query[1:], b_g1_query[1:], h_query, l_query) are stacked per padded
-size class, so short lanes do not pad to the h_query length.  query[0]
-entries (the constant-1 wire) are stored as single points.  The
-"stacked" layout of the sharded prover waits for the multi-device slice.
+Port of `groth16_tpu/protocol/device_keys.py`, with its two layouts of
+the four G1 MSMs of a prove (a_query[1:], b_g1_query[1:], h_query,
+l_query): "grouped" (the single-device prover's), stacked per padded
+size class, so short lanes do not pad to the h_query length; and
+"stacked" (the sharded prover's, par/prover_dp.py), one [4, n_pad]
+stack.  query[0] entries (the constant-1 wire) are stored as single
+points.  With `shard=(i, S)` a rank uploads only its i-th 1/S of the
+stacked element axis and of b_g2_tail, each padded with infinity to a
+multiple of S first: the query points are never held whole on one card.
 
 `device_key_from_numpy` and `proving_key_from_reference` carry a key of
 the JAX package across (its device leaves fetched as numpy, or its host
@@ -64,6 +67,9 @@ class DeviceProvingKey:
     g1_group_info: tuple
     nv_tail: int  # len(a_query) - 1 = rho length
     device: torch.device
+    # "stacked" layout: [*coords, 4, n_pad] (this rank's n_pad / S with
+    # a shard), lanes in canonical order; None in the grouped layout
+    g1_msm_points: Any = None
 
     @property
     def params(self):
@@ -102,8 +108,31 @@ def group_lane_sizes(lengths) -> tuple:
 
 
 def upload_proving_key(
-    pk: ProvingKey, matrices: ConstraintMatrices, device="cuda"
+    pk: ProvingKey,
+    matrices: ConstraintMatrices,
+    device="cuda",
+    pad_multiple: int = 1,
+    layout: str = "grouped",
+    shard=None,
 ) -> DeviceProvingKey:
+    """layout: "grouped" (single-device prover; per-size-class G1 stacks so
+    short lanes don't pad to the longest) or "stacked" (one [4, n_pad]
+    stack, which the sharded prover's element sharding consumes; there
+    b_g2_tail is padded with infinity to a multiple of pad_multiple).
+    pad_multiple: round the stacked MSM length n_pad up (mesh
+    divisibility).
+
+    shard: (index, S), the sharded prover's key: the stacked layout with
+    pad_multiple S, of which only the index-th 1/S of the element axis of
+    the stack and of b_g2_tail is encoded and uploaded (layout and
+    pad_multiple are then implied and left at their defaults).  The
+    single points and the matrices are whole on every shard."""
+    if layout not in ("grouped", "stacked"):
+        raise ValueError(f"upload_proving_key: layout {layout!r}")
+    if shard is not None:
+        if (layout, pad_multiple) != ("grouped", 1):
+            raise ValueError(f"upload_proving_key: shard {shard} sets the layout and pad_multiple itself")
+        layout, pad_multiple = "stacked", shard[1]
     dev = resolve_device(device)
     c = get_curve(pk.vk.curve)
     fr = make_spec(c.r, name=f"{c.name}.Fr")
@@ -115,19 +144,38 @@ def upload_proving_key(
     def single_g2(p):
         return tuple(a[..., 0] for a in codec.g2_to_device(c, [p], dev))
 
+    def part(pts, n_pad):
+        """The shard's slice of pts padded with infinity (None) to n_pad."""
+        index, count = shard if shard is not None else (0, 1)
+        m = n_pad // count
+        got = list(pts[index * m : (index + 1) * m])
+        return got + [None] * (m - len(got))
+
     n_h = len(pk.h_query)
     n_aux = len(pk.l_query)
     nv_tail = len(pk.a_query) - 1
+    n_pad = max(n_h, n_aux, nv_tail)
+    n_pad = -(-n_pad // pad_multiple) * pad_multiple
     queries = [pk.a_query[1:], pk.b_g1_query[1:], pk.h_query, pk.l_query]
-    info = group_lane_sizes([len(q) for q in queries])
-    groups = []
-    for npad_g, lane_ids in info:
-        lanes_g = [
-            _pad_points(codec.g1_to_device(c, queries[i], dev), npad_g, g1) for i in lane_ids
-        ]
-        groups.append(tuple(torch.stack([lane[k] for lane in lanes_g], dim=-2) for k in range(3)))
+    groups, info, stacked = (), (), None
+    b_g2_tail = pk.b_g2_query[1:]
+    if layout == "grouped":
+        info = group_lane_sizes([len(q) for q in queries])
+        gs = []
+        for npad_g, lane_ids in info:
+            lanes_g = [
+                _pad_points(codec.g1_to_device(c, queries[i], dev), npad_g, g1) for i in lane_ids
+            ]
+            gs.append(tuple(torch.stack([lane[k] for lane in lanes_g], dim=-2) for k in range(3)))
+        groups = tuple(gs)
+    else:
+        lanes = [codec.g1_to_device(c, part(q, n_pad), dev) for q in queries]
+        # lanes stacked just before the element axis: [*coords, 4, N] —
+        # the layout msm_device_lanes consumes
+        stacked = tuple(torch.stack([lane[k] for lane in lanes], dim=-2) for k in range(3))
+        b_g2_tail = part(b_g2_tail, -(-nv_tail // pad_multiple) * pad_multiple)
     return DeviceProvingKey(
-        b_g2_tail=codec.g2_to_device(c, pk.b_g2_query[1:], dev),
+        b_g2_tail=codec.g2_to_device(c, b_g2_tail, dev),
         a0=single_g1(pk.a_query[0]),
         b10=single_g1(pk.b_g1_query[0]),
         b20=single_g2(pk.b_g2_query[0]),
@@ -137,16 +185,17 @@ def upload_proving_key(
         beta_g2=single_g2(pk.vk.beta_g2),
         delta_g2=single_g2(pk.vk.delta_g2),
         mats=encode_matrices(matrices, fr, dev),
-        g1_groups=tuple(groups),
+        g1_groups=groups,
         curve=pk.vk.curve,
         num_inputs=matrices.num_instance_variables,
         num_constraints=matrices.num_constraints,
-        n_pad=max(n_h, n_aux, nv_tail),
+        n_pad=n_pad,
         n_h=n_h,
         n_aux=n_aux,
         g1_group_info=info,
         nv_tail=nv_tail,
         device=dev,
+        g1_msm_points=stacked,
     )
 
 

@@ -285,6 +285,15 @@ def _host_assembly_np(pk: ProvingKey, acc4_np, b2_np, r: int, s: int) -> Proof:
     return Proof(curve=curve, a=g1.to_affine(g_a), b=g2.to_affine(g2_b), c=g1.to_affine(g_c))
 
 
+def encode_assignment(fr, full_assignment: List[int], device: torch.device) -> torch.Tensor:
+    """The full assignment as int32[L, nv] Montgomery on `device`: host
+    limbs in STANDARD form, Montgomery conversion on the device (one wide
+    K1 multiply); on the card the upload is queued from a pinned buffer,
+    so it does not wait for the work ahead of it."""
+    std = encode(list(full_assignment), fr, mont=False).astype(np.int32)
+    return fp.to_mont(fr, upload(torch.from_numpy(std), device))
+
+
 class TorchProver:
     """Per-(pk, circuit-shape) prover; holds the device key mirror."""
 
@@ -297,11 +306,7 @@ class TorchProver:
         self.dpk = upload_proving_key(pk, matrices, self.device)
 
     def encode_assignment(self, full_assignment: List[int]) -> torch.Tensor:
-        """Host limbs in STANDARD form, Montgomery conversion on the device
-        (one wide K1 multiply); on the card the upload is queued from a
-        pinned buffer, so it does not wait for the work ahead of it."""
-        std = encode(list(full_assignment), self.fr, mont=False).astype(np.int32)
-        return fp.to_mont(self.fr, upload(torch.from_numpy(std), self.device))
+        return encode_assignment(self.fr, full_assignment, self.device)
 
     def prove(self, full_assignment: List[int], r: int, s: int, timer=None,
               host_assembly: bool = True) -> Proof:

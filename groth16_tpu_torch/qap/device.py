@@ -102,43 +102,49 @@ def sparse_matvec(spec: FpSpec, dm: DeviceMatrix, z: torch.Tensor) -> torch.Tens
     return fp.select(dm.nonempty, sums, fp.zeros(spec, (dm.num_rows,), device=z.device))
 
 
+def rows_window(x: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
+    """x[..., lo:hi], with zero columns (the value 0) past x's end."""
+    part = x[..., lo : min(hi, x.shape[-1])]
+    return torch.nn.functional.pad(part, (0, hi - lo - part.shape[-1])).contiguous()
+
+
 def witness_map_device(
     spec: FpSpec,
-    domain: NttDomain,
+    ntt,  # NttDomain, or par.ntt_cp.ShardedNtt (its rank's slice)
     mats,  # dict a/b/c -> DeviceMatrix
     z_mont: torch.Tensor,  # int32[L, nv] Montgomery full assignment
     num_inputs: int,
     num_constraints: int,
+    window=None,
 ) -> torch.Tensor:
-    """-> h coefficients, int32[L, n] Montgomery (r1cs_to_qap.rs:172-235)."""
-    n = domain.size
-    dev = z_mont.device
+    """-> h coefficients, int32[L, m] Montgomery (r1cs_to_qap.rs:172-235).
 
-    def zero_pad(x):
-        if x.shape[-1] < n:
-            return torch.cat([x, fp.zeros(spec, (n - x.shape[-1],), device=dev)], dim=-1)
-        return x
+    ntt: the transforms (fft, ifft, coset_fft, coset_ifft of its domain
+    of size n).  window: (lo, m), the rows of the zero-padded vectors that
+    the transforms take, (0, n) by default; a ShardedNtt takes its rank's
+    slice (index * n/S, n/S) and returns that slice of h."""
+    lo, m = (0, ntt.size) if window is None else window
 
     a = sparse_matvec(spec, mats["a"], z_mont)
     b = sparse_matvec(spec, mats["b"], z_mont)
     # input-consistency splice (r1cs_to_qap.rs:195-199): rows
     # [num_constraints, num_constraints + num_inputs) of a get the public
     # inputs; b stays zero there.
-    a = zero_pad(torch.cat([a[:, :num_constraints], z_mont[:, :num_inputs]], dim=-1))
-    b = zero_pad(b[:, :num_constraints])
+    a = rows_window(torch.cat([a[:, :num_constraints], z_mont[:, :num_inputs]], dim=-1), lo, lo + m)
+    b = rows_window(b[:, :num_constraints], lo, lo + m)
 
-    a = domain.coset_fft(domain.ifft(a))
-    b = domain.coset_fft(domain.ifft(b))
+    a = ntt.coset_fft(ntt.ifft(a))
+    b = ntt.coset_fft(ntt.ifft(b))
     ab = fp.mont_mul(spec, a, b)
 
     c = sparse_matvec(spec, mats["c"], z_mont)
-    c = domain.coset_fft(domain.ifft(zero_pad(c[:, :num_constraints])))
+    c = ntt.coset_fft(ntt.ifft(rows_window(c[:, :num_constraints], lo, lo + m)))
 
     p = spec.modulus
-    zg = domain.evaluate_vanishing_polynomial(domain.field.generator)
+    zg = ntt.evaluate_vanishing_polynomial(ntt.field.generator)
     zg_inv = pow(zg, p - 2, p)
-    ab = fp.mont_mul(spec, fp.sub(spec, ab, c), fp.const(spec, zg_inv, (1,), device=dev))
-    return domain.coset_ifft(ab)
+    ab = fp.mont_mul(spec, fp.sub(spec, ab, c), fp.const(spec, zg_inv, (1,), device=z_mont.device))
+    return ntt.coset_ifft(ab)
 
 
 # -- device QAP instance map (setup side) ---------------------------------------

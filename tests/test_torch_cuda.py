@@ -5,8 +5,10 @@ scalar multiplication, the generic-a forms of the full addition, Horner
 and the scalar multiplication (MNT4-298, MNT6-298: over Fq, Fq2 and Fq3),
 the generic-a group kernel's capture step, and the MNT proves, then batch inversion and to_affine, a small prove
 through every kernel, on each MSM scan path, against the exact prover, a
-small device setup against the exact setup, and a small batch and device
-assembly against the exact prover.
+small device setup against the exact setup, a small batch and device
+assembly against the exact prover, and the sharded path (par/): a
+ShardedProver at world size 1 over NCCL against TorchProver, and the
+collectives and ShardedNtt on two gloo ranks sharing the card.
 
 CUDA kernels have no CPU mode, so every test here needs an NVIDIA GPU and
 `nvcc` (the kernels build at first use) and skips elsewhere.  The machine
@@ -740,3 +742,60 @@ def test_mnt_prove_on_the_card_matches_the_exact_prover(dev, curve):
     for proof in got:
         assert (proof.a, proof.b, proof.c) == (want.a, want.b, want.c)
         assert verify_proof(pvk, proof, [15]) and not verify_proof(pvk, proof, [16])
+
+
+def test_sharded_prover_nccl_world_1_equals_torch_prover(dev):
+    """ShardedProver at world size 1 over NCCL (par/mesh.run_ranks) on a
+    2^8 circuit: its proof equals TorchProver's for the same r and s, and
+    the prove launched the main path's kernels and the device assembly's,
+    no plain version."""
+    from groth16_tpu_torch.par.dryrun import rank_prove
+    from groth16_tpu_torch.par.mesh import run_ranks
+    from groth16_tpu_torch.protocol.generator import setup
+    from groth16_tpu_torch.protocol.prover_torch import TorchProver
+    from groth16_tpu_torch.protocol.verifier import prepare_verifying_key, verify_proof
+    from groth16_tpu_torch.r1cs.circuits import DummyCircuit
+    from groth16_tpu_torch.r1cs.system import ConstraintSystem, SynthesisMode
+    from groth16_tpu_torch.utils.rng import Rng
+
+    c = get_curve("bn254")
+    ncon, nvar = (1 << 8) - 2, 1 << 7
+    rng = Rng(0x5AD)
+    pk, vk = setup(DummyCircuit(nvar, ncon), "bn254", rng)
+    r, s = rng.field_element(c.r), rng.field_element(c.r)
+    cs = ConstraintSystem(c.r, mode=SynthesisMode.PROVE)
+    DummyCircuit(nvar, ncon, a=3, b=5)(cs)
+    want = TorchProver(pk, cs.to_matrices()).prove(cs.full_assignment(), r, s)
+    (one,) = run_ranks(rank_prove, 1, "nccl", "cuda", pk, cs.to_matrices(), cs.full_assignment(), r, s)
+    got = one["proof"]
+    assert (got.a, got.b, got.c) == (want.a, want.b, want.c)
+    assert verify_proof(prepare_verifying_key(vk), got, [15])
+    ran = {k for k, v in one["launches"].items() if v}
+    assert {"mont_mul", "add_g1", "add_g2", "horner_g1", "horner_g2", "suffix_scan_g1", "suffix_scan_g2",
+            "scalar_mul_g1", "scalar_mul_g2"} <= ran
+    assert not any(one["plain"].values())
+
+
+def test_transpose_a2a_and_sharded_ntt_two_gloo_ranks_on_one_card(dev):
+    """Two gloo ranks sharing the card: transpose_a2a of an [18, 192,
+    320] array against the global transpose (the collective's output
+    feeds the kernels, whose wrappers refuse non-contiguous tensors), the
+    other collectives against their definitions, and ShardedNtt's four
+    transforms at 2^12 equal to NttDomain's on each rank."""
+    from groth16_tpu_torch.par.dryrun import rank_calls, rank_collectives, rank_ntt
+    from groth16_tpu_torch.par.mesh import run_ranks
+
+    c = get_curve("bn254")
+    rnd = random.Random(0xA2A)
+    coeffs = [rnd.randrange(c.r) for _ in range(1 << 12)]
+    calls = [(rank_collectives, (0xC0DA, 18, 96, 160)), (rank_ntt, ("bn254", coeffs))]
+    outs = run_ranks(rank_calls, 2, "gloo", "cuda", calls)
+    X, V, F = outs[0][0]["X"], outs[0][0]["V"], outs[0][0]["F"]
+    for i, (col, ntt) in enumerate(outs):
+        assert col["transpose_contiguous"]
+        assert np.array_equal(col["transpose"], np.swapaxes(X, 1, 2)[:, 160 * i : 160 * (i + 1)])
+        assert np.array_equal(col["tree_sum"], V.sum(axis=0))
+        assert col["psum"] == [sum(v) % c.r for v in zip(*F)]
+        assert np.array_equal(col["ring"], V[(i - 1) % 2, :4])
+        assert col["traffic"]["host_copies"]["bytes"] > 0  # gloo carries CUDA tensors through the host
+        assert all(ntt["equal_single"].values())

@@ -44,6 +44,12 @@ def test_scan_sees_the_package():
         ("utils", "ubench.py"),
         ("utils", "resume.py"),
         ("par", "batch_pp.py"),
+        ("par", "mesh.py"),
+        ("par", "collectives.py"),
+        ("par", "ntt_cp.py"),
+        ("par", "prover_dp.py"),
+        ("par", "elastic.py"),
+        ("par", "dryrun.py"),
         ("serde", "canonical.py"),
         ("protocol", "absorb.py"),
         ("native", "__init__.py"),
