@@ -204,7 +204,34 @@ Phases, each printing one JSON line:
             with 16, a steady prove under torch.profiler (the card's events
             only); mnt6_298's mixed-radix fft at the prove's size against a
             direct evaluation at 4 sampled points; a 2^6 proof of each
-            curve equal to the exact prover's.
+            curve equal to the exact prover's;
+  mnt_recursion  the MNT cycle's recursion circuit: tests/test_gadget_mnt.py's
+            inner MNT4-298 proof made on the card (setup_device of
+            MySillyCircuit with Rng(0x4427), a = 19, b = 29; counted,
+            equal to the exact prover's, verified and a wrong input
+            rejected), G1AddCircuit over MNT4-298 set up and proved with
+            MNT6-298 (equal to the exact prover's, verified, x + 1
+            rejected), then MntVerifierCircuit on the inner proof (69,597
+            constraints over MNT6-298's r, no public input): its SETUP
+            shape equal to its PROVE shape, setup_device at 2^17 (Fr's
+            2-adicity; phase-timed, counted, peak memory, 64 points of each
+            query checked on the host), TorchProver (the matrix encode
+            timed), one counted prove (K1 at L = 21, the generic-a
+            additions and capture steps and Horner launch, no K2, K3, K6
+            or K7, no plain version on the card), h equal to the exact
+            host witness map, a device-assembled prove equal to the host
+            one, both verified with [] on the native and the Python
+            engine, the proof of the assignment with the inner input + 1
+            (unsatisfied) rejected, 3 steady proves (the last phase-timed),
+            one profiled, the witness map's parts timed, the 2^17 fft
+            against a direct evaluation at 4 points, and K1 (the B and A
+            matvecs' products, 2,542,106 and 1,835,509 elements, and 2^17),
+            the generic-a kernel at the prove's widest launches, its
+            capture step on the prove's own rows, Horner and the scalar
+            multiplication at the prove's shapes against their plain
+            versions, timed beside their bounds (the exact witness map and
+            the wrong input's synthesis run in two child processes beside
+            the card's work).
 
 Then the `kernels` line (every kernel with its launches on each path), the
 card's name and power limit as nvidia-smi gives them, and last
@@ -830,7 +857,7 @@ def queued_ms(fn):
 def _point_kernels(dpk, c, n, device, mixed):
     """The point additions of curve c (the full ones, and the mixed ones
     where `mixed` holds True) against their plain version
-    at N = n, on the proving key's own points."""
+    at N = n (or n[name]), on the proving key's own points."""
     import torch
 
     from groth16_tpu_torch.curves import codec, cuda_point
@@ -838,9 +865,11 @@ def _point_kernels(dpk, c, n, device, mixed):
 
     L = make_spec(c.p).n_limbs
     entries = {}
+    widths = n
     for name, (tag, is_mixed, g2, replaces) in POINT_KERNELS.items():
         if is_mixed not in mixed:
             continue
+        n = widths[name] if isinstance(widths, dict) else widths
         g = codec.g2_ops(c) if g2 else codec.g1_ops(c)
         deg = g.k.tower_deg
         if g2 and deg == 1:  # G2 over Fq: G1's kernel (K4, K6) with G2's b3
@@ -1107,53 +1136,62 @@ def _horner_kernels(shapes, c, device):
 CAPTURE_TARGETS = 3 * 4096
 
 
+def _capture_call(g, c, acc, xy, cap, jk, src, k_prev, live) -> dict:
+    """One capture step of curve ops g (acc + the affine rows xy, and the
+    captures cap of the targets jk == k_prev read from acc[src]) against
+    its plain version (capture_step_plain: from_affine, the generic-a law
+    and the select, on the card), digit for digit, then timed beside its
+    bound: `live` additions (the data's work) and the bytes of the
+    accumulators, the rows and the captures taken.  The kernel writes the
+    captures of a copy of cap in place.  -> the row's numbers."""
+    import torch
+
+    from groth16_tpu_torch.curves import cuda_point
+    from groth16_tpu_torch.fields.spec import make_spec
+
+    L, D = make_spec(c.p).n_limbs, g.k.tower_deg
+    n, T = acc[0].shape[-1], jk.shape[-1]
+    cap_k = tuple(x.clone() for x in cap)
+    run = lambda: g.capture_step(acc, xy, cap_k, jk, src, k_prev)  # noqa: E731
+    got = run()
+    want, plain_ms = timed_once(lambda: cuda_point.capture_step_plain(
+        cuda_point.plain_ops(g.k), g.b3_val, g.a_val, acc, xy, cap, jk, src, k_prev))
+    torch.cuda.synchronize()
+    flat = lambda pair: list(pair[0]) + list(pair[1])  # noqa: E731
+    if not all(torch.equal(x, y) for x, y in zip(flat(got), flat(want))):
+        raise AssertionError(f"capture step over degree {D} on {c.name} at n = {n}: kernel and plain version disagree")
+    taken = int((jk == k_prev).sum())
+    nbytes = ((3 + 2 + 3) * n + 2 * 3 * taken) * L * D * 4 + 2 * 4 * T
+    return {"n": n, "targets": T, "captured": taken, "max_abs_err": max_abs_err(flat(got), flat(want)),
+            "ms": queued_ms(run)[0], "plain_ms": plain_ms, **point_bound(nbytes, live, L, D == 2, g=g)}
+
+
 def _capture_step_kernels(dpk, c, device, widths):
-    """The generic-a group kernel's capture step (acc + an affine row, and
-    the captures of the step before) of curve c's G1 and G2 against its
-    plain version (capture_step_plain: from_affine, the generic-a law and
-    the select, on the card), digit for digit, at each of widths[name]
-    points (the widest capture step of the curve's prove, and 2^16), on
-    its key's points with the special lanes (rows at infinity, P + P,
-    P + (-P), an infinite accumulator) and CAPTURE_TARGETS targets a third
-    of which capture; each timed beside its bound."""
+    """The generic-a group kernel's capture step (_capture_call) of curve
+    c's G1 and G2 at each of widths[name] points (the widest capture step
+    of the curve's prove, and 2^16), on its key's points with the special
+    lanes (rows at infinity, P + P, P + (-P), an infinite accumulator)
+    and CAPTURE_TARGETS targets a third of which capture."""
     import numpy as np
     import torch
 
-    from groth16_tpu_torch.curves import codec, cuda_point
-    from groth16_tpu_torch.fields.spec import make_spec
+    from groth16_tpu_torch.curves import codec
 
-    L = make_spec(c.p).n_limbs
     rng = np.random.default_rng(0xCA)
     entries = {}
     for name, g in (("capture_step_g1", codec.g1_ops(c)), ("capture_step_g2", codec.g2_ops(c))):
-        D = g.k.tower_deg
-        plain_ops = cuda_point.plain_ops(g.k)
         src_pts = _key_points(dpk, g)
-        calls, err = [], 0
+        calls = []
         for n in widths[name]:
             _, _, acc, xy = _kernel_inputs(src_pts, g, n, device)
             T = CAPTURE_TARGETS
             jk = torch.from_numpy(rng.integers(0, 3, T, dtype=np.int32)).to(device)
             src = torch.from_numpy(rng.integers(0, n, T, dtype=np.int32)).to(device)
-            cap0 = g.infinity((T,), device=device)
-            cap = tuple(x.clone() for x in cap0)
-            run = lambda: g.capture_step(acc, xy, cap, jk, src, 1)  # noqa: E731
-            got = run()
-            want, plain_ms = timed_once(lambda: cuda_point.capture_step_plain(
-                plain_ops, g.b3_val, g.a_val, acc, xy, cap0, jk, src, 1))
-            torch.cuda.synchronize()
-            flat = lambda pair: list(pair[0]) + list(pair[1])  # noqa: E731
-            if not all(torch.equal(x, y) for x, y in zip(flat(got), flat(want))):
-                raise AssertionError(f"{name} on {c.name} at n = {n}: kernel and plain version disagree")
-            err = max(err, max_abs_err(flat(got), flat(want)))
-            ms = queued_ms(run)[0]
-            taken = int((jk == 1).sum())
-            nbytes = ((3 + 2 + 3) * n + 2 * 3 * taken) * L * D * 4 + 2 * 4 * T
-            calls.append({"n": n, "targets": T, "captured": taken, "ms": ms, "plain_ms": plain_ms,
-                          **point_bound(nbytes, n, L, D == 2, g=g)})
-        row = {"kernel": name, "curve": c.name, "tolerance": 0, "max_abs_err": err, "calls": calls,
-               **{k: calls[0][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "bound_published_ms",
-                                           "bound_published_by")}, "at_n": calls[0]["n"], "card": card_line()}
+            calls.append(_capture_call(g, c, acc, xy, g.infinity((T,), device=device), jk, src, 1, n))
+        row = {"kernel": name, "curve": c.name, "tolerance": 0, "max_abs_err": max(x["max_abs_err"] for x in calls),
+               "calls": calls, **{k: calls[0][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                           "bound_published_ms", "bound_published_by")},
+               "at_n": calls[0]["n"], "card": card_line()}
         emit({"phase": "kernels", **row})
         entries[name] = {
             "name": name, "route": "cuda", "source": "groth16_tpu_torch/csrc/general_add.cu",
@@ -2264,12 +2302,13 @@ def _bw6_counts(kernels, what):
     return dict(launches, mont_mul_by_limbs=by_l)
 
 
-def _bw6_gadget(device):
-    """The gadget circuit (r1cs/gadget_circuit.py: a BLS12-377 G1 addition
-    in-circuit, its x public) set up on the card with BW6-761 and proved
-    by TorchProver (counted: K1, K2, K4 and Horner launch); the proof must
-    equal the exact prover's on the same key, r and s, verify with the
-    sum's x and fail with x + 1."""
+def _gadget_circuit(device, inner, counts):
+    """The gadget circuit (r1cs/gadget_circuit.py: G1AddCircuit, a G1
+    addition of the inner curve in-circuit, its x public) set up on the
+    card with the cycle's outer curve (BW6-761 for BLS12-377, MNT6-298 for
+    MNT4-298) and proved by TorchProver (counted: counts(what) reads and
+    checks the launches); the proof must equal the exact prover's on the
+    same key, r and s, verify with the sum's x and fail with x + 1."""
     import torch
 
     from groth16_tpu_torch.curves.params import get_curve
@@ -2277,24 +2316,25 @@ def _bw6_gadget(device):
     from groth16_tpu_torch.protocol.prover import create_proof_with_reduction
     from groth16_tpu_torch.protocol.prover_torch import TorchProver
     from groth16_tpu_torch.protocol.verifier import prepare_verifying_key, verify_proof
-    from groth16_tpu_torch.r1cs.gadget_circuit import INNER, OUTER, G1AddCircuit
+    from groth16_tpu_torch.r1cs.gadget_circuit import CYCLES, G1AddCircuit
     from groth16_tpu_torch.r1cs.system import ConstraintSystem, SynthesisMode
     from groth16_tpu_torch.ref.curve import RefGroups
     from groth16_tpu_torch.utils.rng import Rng
 
-    c = get_curve(OUTER)
-    inner = RefGroups(INNER)
-    P = inner.g1_sample(3)
-    Q = inner.g1_mul(P, 0xC0FFEE)
-    x = inner.g1_add(P, Q)[0]
+    outer = CYCLES[inner]
+    c = get_curve(outer)
+    groups = RefGroups(inner)
+    P = groups.g1_sample(3)
+    Q = groups.g1_mul(P, 0xC0FFEE)
+    x = groups.g1_add(P, Q)[0]
     rng = Rng(0x6AD)
     t0 = time.time()
-    pk, vk = setup_device(G1AddCircuit(), OUTER, rng, device=device)
+    pk, vk = setup_device(G1AddCircuit(inner=inner), outer, rng, device=device)
     setup_s = time.time() - t0
     cs = ConstraintSystem(c.r, mode=SynthesisMode.PROVE)
-    G1AddCircuit(P, Q)(cs)
+    G1AddCircuit(P, Q, inner=inner)(cs)
     if not cs.is_satisfied() or cs.full_assignment()[1] != x:
-        raise AssertionError("the gadget circuit's assignment is wrong")
+        raise AssertionError(f"the {inner} gadget circuit's assignment is wrong")
     prover = TorchProver(pk, cs.to_matrices(), device=device)
     r, s = rng.field_element(c.r), rng.field_element(c.r)
     zero_counts()
@@ -2302,13 +2342,13 @@ def _bw6_gadget(device):
     proof = prover.prove(cs.full_assignment(), r, s)
     torch.cuda.synchronize()
     prove_s = time.time() - t0
-    launches = _bw6_counts(BW6_MAIN, "gadget circuit")
-    if not _same(proof, create_proof_with_reduction(G1AddCircuit(P, Q), pk, r, s)):
-        raise AssertionError("the gadget circuit's proof on the card differs from the exact prover's")
+    launches = counts(f"{inner} gadget circuit")
+    if not _same(proof, create_proof_with_reduction(G1AddCircuit(P, Q, inner=inner), pk, r, s)):
+        raise AssertionError(f"the {inner} gadget circuit's proof on the card differs from the exact prover's")
     pvk = prepare_verifying_key(vk)
     if not verify_proof(pvk, proof, [x]) or verify_proof(pvk, proof, [(x + 1) % c.r]):
-        raise AssertionError("the gadget circuit's proof does not verify, or verifies a wrong input")
-    return {"circuit": "G1AddCircuit (a BLS12-377 G1 addition in-circuit, its x public)",
+        raise AssertionError(f"the {inner} gadget circuit's proof does not verify, or verifies a wrong input")
+    return {"circuit": f"G1AddCircuit (a {inner} G1 addition in-circuit over {outer}'s r, its x public)",
             "constraints": cs.num_constraints, "setup_s": setup_s, "prove_s": prove_s,
             "launches": launches, "equal_to_exact_prover": True, "verified": True,
             "wrong_input_rejected": True}
@@ -2395,7 +2435,7 @@ def phase_bw6(device):
     _step(out, "prove")
     del keep, prover, pk
     phase_reference(device, BW6_CURVE, fused=(True, False))
-    out["gadget_circuit"] = _bw6_gadget(device)
+    out["gadget_circuit"] = _gadget_circuit(device, "bls12_377", lambda what: _bw6_counts(BW6_MAIN, what))
     _step(out, "gadget_circuit")
     # G2's rows beside G1's: they ran G1's kernels with G2's b3
     for g2_name, g1_name in BW6_G2_ROWS.items():
@@ -2425,13 +2465,13 @@ K1_SIZES_MNT = (
 MNT_ADD_CHECK_N = (1, 3, 33, 4096 + 5)
 
 
-def _mnt_counts(kernels, what, g2_deg):
+def _mnt_counts(kernels, what, g2_deg, kinds=("add", "capture_step")):
     """read_counts(kernels) with K1's launches at each L and the generic-a
     launches by kernel and field degree; raises if K1 ran nothing at
-    L = 21, if the generic-a full addition or its capture step did not
-    launch over Fq and over G2's field, if any full addition or capture
-    step ran another law, or if a kernel of the a = 0 law (K2, K3, K6,
-    K7) launched."""
+    L = 21, if the generic-a full addition or its capture step (each of
+    `kinds`) did not launch over Fq and over G2's field, if any full
+    addition or capture step ran another law, or if a kernel of the
+    a = 0 law (K2, K3, K6, K7) launched."""
     from groth16_tpu_torch.curves import cuda_point
     from groth16_tpu_torch.fields import cuda_fp
 
@@ -2443,7 +2483,8 @@ def _mnt_counts(kernels, what, g2_deg):
     if by_l["L21"] == 0:
         raise AssertionError(f"{what}: no K1 launch at L = 21")
     general = {k: v for k, v in cuda_point.GENERAL_A_LAUNCHES.items() if v}
-    for kind, (g1, g2) in (("add", ("add_g1", "add_g2")), ("capture_step", ("capture_step_g1", "capture_step_g2"))):
+    for kind in kinds:
+        g1, g2 = f"{kind}_g1", f"{kind}_g2"
         n = general.get(f"{kind}_d1", 0) + general.get(f"{kind}_d{g2_deg}", 0)
         if not (general.get(f"{kind}_d1") and general.get(f"{kind}_d{g2_deg}")) or n != launches[g1] + launches[g2]:
             raise AssertionError(f"{what}: the generic-a kernel did not carry every {kind}: {general}")
@@ -2468,10 +2509,10 @@ def _mnt_kernels(dpk, c, device, seed, widest):
 
 
 def _mnt_fft_check(domain, device, seed, points=4):
-    """The mixed-radix fft at the prove's domain size against a direct
-    evaluation (Python ints) of the polynomial (62-bit coefficients) at
-    `points` sampled domain points, and ifft(fft(a)) == a (on the card,
-    after reduction to [0, p))."""
+    """The fft (mixed-radix or radix-2) at the prove's domain size
+    against a direct evaluation (Python ints) of the polynomial (62-bit
+    coefficients) at `points` sampled domain points, and ifft(fft(a)) ==
+    a (on the card, after reduction to [0, p))."""
     import numpy as np
     import torch
 
@@ -2494,9 +2535,9 @@ def _mnt_fft_check(domain, device, seed, points=4):
         for cf in reversed(coeffs):
             acc = (acc * x + cf) % p
         if acc != v:
-            raise AssertionError(f"the mixed-radix fft differs from the polynomial at w^{i}")
+            raise AssertionError(f"the fft of size {n} differs from the polynomial at w^{i}")
     if not torch.equal(fp.normalize(domain.spec, back, bound_k=2), a):
-        raise AssertionError("ifft(fft(a)) != a on the mixed-radix domain")
+        raise AssertionError(f"ifft(fft(a)) != a on the domain of size {n}")
     return {"size": n, "radixes": list(domain.radixes), "points_checked": idx, "fft_and_ifft_s": card_s,
             "ifft_of_fft_equal": True}
 
@@ -2590,13 +2631,457 @@ def phase_mnt(device):
     return launches, rows, by_curve
 
 
+# The MNT cycle's recursion circuit (r1cs/gadget_circuit.py:
+# MntVerifierCircuit): an MNT4-298 proof, made on the card, verified inside
+# an MNT6-298 circuit of 69,597 constraints that the card sets up and
+# proves on 2^17 points, Fr's 2-adicity: the largest radix-2 domain
+RECURSION_INNER_SEED = 0x4427  # tests/test_gadget_mnt.py's inner setup
+RECURSION_INNER_AB = (19, 29)  # and its a and b
+RECURSION_SEED = 0x6E6
+RECURSION_STEADY = 3
+# the capture step of the prove's own rows that the kernel check takes:
+# the RECURSION_CAPTURE_STEP-th at the widest width of its group (its
+# accumulators then no longer all infinity)
+RECURSION_CAPTURE_STEP = 8
+RECURSION_CHILD_TIMEOUT_S = 600
+MNT_SETUP_KERNELS = ("mont_mul", "add_g1", "add_g2")
+
+
+def _child_main(send, fn, args):
+    send.send(fn(*args))
+    send.close()
+
+
+def _spawn(fn, *args):
+    """fn(*args) (a function of this module, which runs nothing on the
+    card) in a spawned child process -> (the process, the pipe end its
+    result arrives on)."""
+    import multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    recv, send = ctx.Pipe(duplex=False)
+    proc = ctx.Process(target=_child_main, args=(send, fn, args), daemon=True)
+    proc.start()
+    send.close()
+    return proc, recv
+
+
+def _joined(child, what, timeout=RECURSION_CHILD_TIMEOUT_S):
+    """The result of a _spawn child, which is then joined (ended if it
+    lingers); raises if it failed or took longer than `timeout`."""
+    proc, recv = child
+    try:
+        if not recv.poll(timeout):
+            raise AssertionError(f"{what}: no result within {timeout} s")
+        try:
+            return recv.recv()
+        except EOFError:
+            proc.join(30)
+            raise AssertionError(f"{what} failed in its child process (exit code {proc.exitcode})") from None
+    finally:
+        proc.join(30)
+        if proc.is_alive():
+            proc.terminate()
+            proc.join()
+
+
+def _recursion_cs(vk, proof, pub, mode="PROVE"):
+    """MntVerifierCircuit(vk, proof, pub) synthesized over MNT6-298's r."""
+    from groth16_tpu_torch.curves.params import get_curve
+    from groth16_tpu_torch.r1cs.gadget_circuit import MNT_OUTER, MntVerifierCircuit
+    from groth16_tpu_torch.r1cs.system import ConstraintSystem, SynthesisMode
+
+    cs = ConstraintSystem(get_curve(MNT_OUTER).r, mode=SynthesisMode[mode])
+    MntVerifierCircuit(vk, proof, pub)(cs)
+    return cs
+
+
+def _recursion_exact_h(vk, proof, pub):
+    """(In a child process.)  The recursion circuit synthesized, whether
+    it is satisfied, and the exact host witness map
+    (qap/reduction.py: LibsnarkReduction.witness_map_from_matrices) of
+    its assignment -> (h, satisfied, seconds by step)."""
+    from groth16_tpu_torch.curves.params import get_curve
+    from groth16_tpu_torch.qap.reduction import LibsnarkReduction
+    from groth16_tpu_torch.r1cs.gadget_circuit import MNT_OUTER
+
+    secs, t0 = {}, time.time()
+    cs = _recursion_cs(vk, proof, pub)
+    secs["synthesis"] = time.time() - t0
+    t0 = time.time()
+    satisfied = cs.is_satisfied()
+    secs["is_satisfied"] = time.time() - t0
+    t0 = time.time()
+    m = cs.to_matrices()
+    secs["to_matrices"] = time.time() - t0
+    t0 = time.time()
+    h = LibsnarkReduction.witness_map_from_matrices(
+        m, get_curve(MNT_OUTER).fr, m.num_instance_variables, m.num_constraints, cs.full_assignment())
+    secs["witness_map"] = time.time() - t0
+    return h, satisfied, secs
+
+
+def _recursion_wrong_input(vk, proof, pub):
+    """(In a child process.)  The recursion circuit synthesized with the
+    public input `pub` -> (its full assignment, satisfied, seconds)."""
+    t0 = time.time()
+    cs = _recursion_cs(vk, proof, pub)
+    return cs.full_assignment(), cs.is_satisfied(), time.time() - t0
+
+
+def _matrix_tuple(m):
+    return m.num_instance_variables, m.num_witness_variables, m.num_constraints, m.a, m.b, m.c
+
+
+def _recursion_inner(device):
+    """tests/test_gadget_mnt.py's inner proof made on the card:
+    setup_device of MySillyCircuit on MNT4-298 with Rng(0x4427), then
+    TorchProver with a = 19 and b = 29 (counted: K1 at L = 21, the
+    generic-a additions and capture steps launch); the proof must equal
+    the exact prover's on the same key, r and s, verify with a b mod r and
+    fail with a b + 1.  -> (vk, proof, public input, what it measured)."""
+    import torch
+
+    from groth16_tpu_torch.curves.params import get_curve
+    from groth16_tpu_torch.protocol.generator_torch import setup_device
+    from groth16_tpu_torch.protocol.prover import create_proof_with_reduction
+    from groth16_tpu_torch.protocol.prover_torch import TorchProver
+    from groth16_tpu_torch.protocol.verifier import prepare_verifying_key, verify_proof
+    from groth16_tpu_torch.r1cs.circuits import MySillyCircuit
+    from groth16_tpu_torch.r1cs.gadget_circuit import MNT_INNER
+    from groth16_tpu_torch.r1cs.system import ConstraintSystem, SynthesisMode
+    from groth16_tpu_torch.utils.rng import Rng
+
+    c = get_curve(MNT_INNER)
+    rng = Rng(RECURSION_INNER_SEED)
+    t0 = time.time()
+    pk, vk = setup_device(MySillyCircuit(), MNT_INNER, rng, device=device)
+    setup_s = time.time() - t0
+    a, b = RECURSION_INNER_AB
+    r, s = rng.field_element(c.r), rng.field_element(c.r)
+    circuit = MySillyCircuit(a=a, b=b)
+    cs = ConstraintSystem(c.r, mode=SynthesisMode.PROVE)
+    circuit(cs)
+    prover = TorchProver(pk, cs.to_matrices(), device=device)
+    zero_counts()
+    t0 = time.time()
+    proof = prover.prove(cs.full_assignment(), r, s)
+    torch.cuda.synchronize()
+    prove_s = time.time() - t0
+    launches = _mnt_counts(MNT_MAIN, f"the inner {MNT_INNER} prove", c.g2_field_degree)
+    if not _same(proof, create_proof_with_reduction(circuit, pk, r, s)):
+        raise AssertionError("the inner MNT4-298 proof on the card differs from the exact prover's")
+    pub = [a * b % c.r]
+    pvk = prepare_verifying_key(vk)
+    if not verify_proof(pvk, proof, pub) or verify_proof(pvk, proof, [(pub[0] + 1) % c.r]):
+        raise AssertionError("the inner MNT4-298 proof does not verify, or verifies a wrong input")
+    return vk, proof, pub, {
+        "circuit": f"MySillyCircuit(a={a}, b={b}) on {MNT_INNER}", "setup_s": setup_s, "prove_s": prove_s,
+        "launches": launches, "equal_to_exact_prover": True, "verified": True, "wrong_input_rejected": True}
+
+
+def _recording_capture_steps(prove):
+    """prove(), and the inputs of one capture step of each group
+    (CurveDevice.capture_step) at the widest width the prove ran it: its
+    RECURSION_CAPTURE_STEP-th step there (its first where there are
+    fewer), cloned before the kernel writes its captures in place."""
+    from groth16_tpu_torch.curves.point import CurveDevice
+
+    real, kept, seen = CurveDevice.capture_step, {}, {}
+
+    def step(self, acc, xy, cap=None, jk=None, src=None, k_prev=-1, add=True):
+        name = "capture_step_g2" if self.k.tower_deg > 1 else "capture_step_g1"
+        n = acc[0].shape[-1]
+        width, count = seen.get(name, (0, 0))
+        if add and cap is not None and n >= width:
+            count = count + 1 if n == width else 1
+            seen[name] = (n, count)
+            if count in (1, RECURSION_CAPTURE_STEP):
+                clone = lambda pt: tuple(x.clone() for x in pt)  # noqa: E731
+                kept[name] = (self, clone(acc), clone(xy), clone(cap), jk.clone(), src.clone(), k_prev)
+        return real(self, acc, xy, cap, jk, src, k_prev, add)
+
+    CurveDevice.capture_step = step
+    try:
+        return prove(), kept
+    finally:
+        CurveDevice.capture_step = real
+
+
+def _recorded_capture_steps(c, kept, device):
+    """The generic-a group kernel's capture step (_capture_call) on the
+    inputs _recording_capture_steps kept from a prove (its own rows,
+    accumulators and captures); its bound counts the additions whose two
+    operands are finite (the data's work).  -> kernels-line rows."""
+    entries = {}
+    for name, (g, acc, xy, cap, jk, src, k_prev) in sorted(kept.items()):
+        n = acc[0].shape[-1]
+        row_inf = ~(xy[1].reshape(-1, n) != 0).any(dim=0)
+        acc_inf = g.is_infinity(acc)
+        live = int((~row_inf & ~acc_inf).sum())
+        row = {"kernel": name, "curve": c.name, "rows": "the recursion prove's own", "tolerance": 0,
+               "rows_at_infinity": int(row_inf.sum()), "accumulators_at_infinity": int(acc_inf.sum()),
+               "live_additions": live, **_capture_call(g, c, acc, xy, cap, jk, src, k_prev, live),
+               "card": card_line()}
+        emit({"phase": "mnt_recursion", **row})
+        entries[name] = {"name": name, "route": "cuda", "source": "groth16_tpu_torch/csrc/general_add.cu",
+                         "replaces": "groth16_tpu/msm/scans.py:192", **_kline(row), "at_n": n}
+    if set(entries) != {"capture_step_g1", "capture_step_g2"}:
+        raise AssertionError(f"the recursion prove ran no capture step of some group: {sorted(entries)}")
+    return entries
+
+
+def _recursion_k1(dpk, z_enc):
+    """K1 at the recursion prove's widest launches: the B and the A
+    matvec's products (coefficients x the assignment gathered by column,
+    2,542,106 and 1,835,509 elements), and 2^17 (the domain's size) of
+    the B operands, against its plain version and timed (_k1_row).  ->
+    the kernels-line row (B's)."""
+    fr = dpk.fr_spec
+    rows = []
+    for label, key in (("B matvec", "b"), ("A matvec", "a"), ("2^17 of the B matvec's", "b")):
+        dm = dpk.mats[key]
+        a, b = dm.coeffs, z_enc[:, dm.cols]
+        if label.startswith("2^17"):
+            n = dpk.domain.size
+            a, b = a[:, :n].contiguous(), b[:, :n].contiguous()
+        n = b.shape[-1]
+        row = {"kernel": "K1 mont_mul", "field": "mnt6_298.Fr", "operands": label, "n": n, "period": None,
+               **_k1_row(fr, a, b, n, None, sweep=label == "B matvec")}
+        emit({"phase": "mnt_recursion", **row})
+        rows.append(row)
+        del a, b
+    return {"name": "mont_mul", "route": "cuda", "source": "groth16_tpu_torch/csrc/mont_mul.cu",
+            "replaces": "groth16_tpu/fields/pallas_fp.py:114", **_kline(rows[0]), "n": rows[0]["n"],
+            "ms_by_n": {r["n"]: r["ms"] for r in rows}, "bound_ms_by_n": {r["n"]: r["bound_ms"] for r in rows}}
+
+
+def phase_mnt_recursion(device):
+    """The MNT cycle's recursion circuit on the card: the inner MNT4-298
+    proof (_recursion_inner), the small cycle circuit (G1AddCircuit over
+    MNT4-298, _gadget_circuit), then MntVerifierCircuit on that proof
+    (69,597 constraints over MNT6-298's r): its SETUP shape equal to its
+    PROVE shape, setup_device at 2^17 (phase-timed, counted, peak memory,
+    64 points of each query checked on the host), TorchProver (the matrix
+    encode timed), one counted prove (K1 at L = 21, the generic-a
+    additions and capture steps, Horner; no K2, K3, K6 or K7; no plain
+    version on the card), h equal to the exact host witness map, a
+    device-assembled prove equal to the host-assembled one, both verified
+    with [] on the native and the Python engine, the assignment of the
+    inner input + 1 (unsatisfied) proved and rejected, RECURSION_STEADY
+    steady proves (the last phase-timed) and one profiled, the fft at 2^17
+    against a direct evaluation, and the kernels at the prove's shapes
+    against their plain versions (K1 at its widest launches, the
+    generic-a kernel at its widest, the capture step on the prove's own
+    rows, Horner, the scalar multiplication).  The exact witness map and
+    the wrong-input synthesis run in two child processes beside the card
+    work.  Returns (launches by path, kernels-line rows)."""
+    import torch
+
+    from groth16_tpu_torch.curves import cuda_point
+    from groth16_tpu_torch.curves.params import get_curve
+    from groth16_tpu_torch.fields import cuda_fp
+    from groth16_tpu_torch.fields.spec import decode
+    from groth16_tpu_torch.protocol import device_keys
+    from groth16_tpu_torch.protocol.generator_torch import setup_device
+    from groth16_tpu_torch.protocol.prover_torch import TorchProver
+    from groth16_tpu_torch.protocol.verifier import prepare_verifying_key, verify_proof
+    from groth16_tpu_torch.qap.device import rows_window, sparse_matvec, witness_map_device
+    from groth16_tpu_torch.r1cs.gadget_circuit import MNT_INNER, MNT_OUTER, MntVerifierCircuit
+    from groth16_tpu_torch.ref.domain import RefDomain
+    from groth16_tpu_torch.utils.profiling import PhaseTimer
+    from groth16_tpu_torch.utils.rng import Rng
+
+    t_phase = time.time()
+    c, inner = get_curve(MNT_OUTER), get_curve(MNT_INNER)
+    deg = c.g2_field_degree
+    out = {"phase": "mnt_recursion", "inner": MNT_INNER, "outer": MNT_OUTER}
+    vk4, proof4, pub, out["inner_proof"] = _recursion_inner(device)
+    _step(out, "inner_proof")
+    out["g1_add_circuit"] = _gadget_circuit(device, MNT_INNER, lambda what: _mnt_counts(MNT_MAIN, what, deg))
+    _step(out, "g1_add_circuit")
+    wrong = [(pub[0] + 1) % inner.r]
+    children = {"exact_h": _spawn(_recursion_exact_h, vk4, proof4, pub),
+                "wrong_input": _spawn(_recursion_wrong_input, vk4, proof4, wrong)}
+    try:
+        t0 = time.time()
+        cs = _recursion_cs(vk4, proof4, pub)
+        out["synthesis_s"] = time.time() - t0
+        t0 = time.time()
+        m, z = cs.to_matrices(), cs.full_assignment()
+        out["to_matrices_s"] = time.time() - t0
+        del cs
+        out.update(constraints=m.num_constraints, instance_variables=m.num_instance_variables,
+                   witness_variables=m.num_witness_variables,
+                   nonzeros={k: sum(len(row) for row in getattr(m, k)) for k in "abc"},
+                   longest_row={k: max(len(row) for row in getattr(m, k)) for k in "abc"},
+                   assignment_zero_or_one_share=sum(v < 2 for v in z) / len(z))
+        _step(out, "synthesis")
+
+        # setup on the card, the SETUP-mode circuit kept for the shape check
+        shaped = []
+
+        def circuit(cs_):
+            MntVerifierCircuit()(cs_)
+            shaped.append(cs_)
+
+        timer = PhaseTimer(verbose=False, device="cuda")
+        record = {}
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        t0 = time.time()
+        pk, vk = setup_device(circuit, MNT_OUTER, Rng(RECURSION_SEED), timer=timer, record=record)
+        torch.cuda.synchronize()
+        out["setup_s"] = time.time() - t0
+        out["setup_phases_s"] = timer.as_dict()
+        out["setup_launches"] = setup_launches = _mnt_counts(
+            MNT_SETUP_KERNELS, "the recursion circuit's setup", deg, kinds=("add",))
+        out["setup_peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        ref = RefDomain(c.fr, m.num_constraints + m.num_instance_variables)
+        out["domain"] = {"size": ref.size, "two_adicity": c.fr.two_adicity,
+                         "device_qap": ref.size == 1 << (ref.size.bit_length() - 1)
+                         and ref.size.bit_length() - 1 <= c.fr.two_adicity}
+        if len(vk.gamma_abc_g1) != 1:
+            raise AssertionError(f"the outer statement has {len(vk.gamma_abc_g1) - 1} public inputs, not 0")
+        t0 = time.time()
+        if _matrix_tuple(shaped.pop().to_matrices()) != _matrix_tuple(m):
+            raise AssertionError("MntVerifierCircuit's SETUP-mode shape differs from its PROVE-mode one")
+        out["setup_shape_equal_to_prove_shape"] = True
+        out["shape_check_s"] = time.time() - t0
+        t0 = time.time()
+        out["sampled_points_checked"] = _check_sampled(MNT_OUTER, pk, record)
+        out["sampled_check_s"] = time.time() - t0
+        del record
+        _step(out, "setup")
+
+        # the prover: the key and the matrices on the card
+        encode, spent = device_keys.encode_matrices, {}
+
+        def timed_encode(*args, **kw):
+            t0 = time.time()
+            mats = encode(*args, **kw)
+            torch.cuda.synchronize()
+            spent["s"] = time.time() - t0
+            return mats
+
+        torch.cuda.reset_peak_memory_stats()
+        device_keys.encode_matrices = timed_encode
+        t0 = time.time()
+        try:
+            prover = TorchProver(pk, m)
+        finally:
+            device_keys.encode_matrices = encode
+        torch.cuda.synchronize()
+        if prover.device.type != "cuda":
+            raise AssertionError(f"TorchProver's default device is {prover.device}")
+        dpk = prover.dpk
+        nbytes = lambda ts: sum(x.numel() * x.element_size() for x in ts)  # noqa: E731
+        out.update(pk_upload_s=time.time() - t0, matrix_encode_s=spent["s"],
+                   matrix_coeff_bytes=nbytes(dm.coeffs for dm in dpk.mats.values()),
+                   key_point_bytes=nbytes([x for grp in dpk.g1_groups for x in grp] + list(dpk.b_g2_tail)),
+                   matvec_steps={k: (dm.max_row_len - 1).bit_length() for k, dm in dpk.mats.items()},
+                   g1_lane_groups=[list(info) for info in dpk.g1_group_info])
+        _step(out, "upload")
+
+        rng = Rng(RECURSION_SEED + 1)
+        r, s = rng.field_element(c.r), rng.field_element(c.r)
+        zero_counts()
+        t0 = time.time()
+        proof = prover.prove(z, r, s)
+        torch.cuda.synchronize()
+        out["first_prove_s"] = time.time() - t0
+        out["launches_per_prove"] = launches = _mnt_counts(MNT_MAIN, "the recursion prove", deg)
+        out["launches_by_size"] = launch_sizes()
+        widest = {k: cuda_point.LARGEST_LAUNCH[k] for k in ("add_g1", "add_g2")}
+        if cuda_fp.LARGEST_LAUNCH["mont_mul"] != max(dm.coeffs.shape[-1] for dm in dpk.mats.values()):
+            raise AssertionError(f"K1's widest launch {cuda_fp.LARGEST_LAUNCH['mont_mul']} is not the B matvec's")
+        zero_counts()
+        assembled, kept = _recording_capture_steps(lambda: prover.prove(z, r, s, host_assembly=False))
+        out["device_assembly_launches_per_prove"] = assembly = _mnt_counts(
+            MNT_ASSEMBLY, "the recursion device-assembled prove", deg)
+        if not _same(assembled, proof):
+            raise AssertionError("the recursion circuit's device-assembled proof differs from the host-assembled one")
+        z_enc = prover.encode_assignment(z)
+        h = witness_map_device(dpk.fr_spec, dpk.domain, dpk.mats, z_enc, dpk.num_inputs, dpk.num_constraints)
+        h = decode(h.cpu().numpy(), dpk.fr_spec)
+        h_exact, satisfied, out["exact_host_s"] = _joined(children["exact_h"], "the exact witness map")
+        if not satisfied:
+            raise AssertionError("the recursion circuit is unsatisfied")
+        if h != h_exact:
+            raise AssertionError("the recursion prove's h differs from the exact witness map's")
+        out["h_equal_to_exact_witness_map"] = True
+        out["verify_s"] = {"host_assembled": _verify_engines(vk, proof, public=(), reps=1),
+                           "device_assembled": _verify_engines(vk, assembled, public=(), reps=1)}
+        z_bad, bad_satisfied, out["wrong_input_synthesis_s"] = _joined(children["wrong_input"], "the wrong input")
+        if bad_satisfied:
+            raise AssertionError("the recursion circuit accepted a wrong inner public input")
+        pvk = prepare_verifying_key(vk)
+        if verify_proof(pvk, prover.prove(z_bad, r, s), []):
+            raise AssertionError("the proof of the unsatisfied recursion assignment verifies")
+        out["unsatisfied_assignment_rejected"] = True
+        _step(out, "prove")
+
+        timer = PhaseTimer(verbose=False, device="cuda")
+        walls, proofs = [], []
+        for i in range(RECURSION_STEADY):
+            t0 = time.time()
+            proofs.append(prover.prove_encoded_host(z_enc, r, s, timer=timer if i == RECURSION_STEADY - 1 else None))
+            walls.append(time.time() - t0)
+        steady, prof = profile_prove(lambda: prover.prove_encoded_host(z_enc, r, s))
+        if prof["device_busy_s"] is not None:
+            prof["device_busy_share"] = prof["device_busy_s"] / prof["profiled_wall_s"]
+        if not all(_same(x, proof) for x in proofs + [steady]):
+            raise AssertionError("a steady recursion proof differs from the first")
+        out.update(steady_prove_s=walls, phases_s=timer.as_dict(), profile=prof,
+                   prove_peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30, card=card_line())
+        # the witness map's parts on the card (CUDA events): each matvec,
+        # and one transform of the seven
+        padded = rows_window(z_enc, 0, dpk.domain.size)
+        out["witness_map_parts_ms"] = {
+            **{f"matvec_{k}": time_ms(lambda dm=dm: sparse_matvec(dpk.fr_spec, dm, z_enc), reps=3)
+               for k, dm in dpk.mats.items()},
+            "fft": time_ms(lambda: dpk.domain.fft(padded), reps=3),
+            "whole": time_ms(lambda: witness_map_device(dpk.fr_spec, dpk.domain, dpk.mats, z_enc, dpk.num_inputs,
+                                                        dpk.num_constraints), reps=3)}
+        _step(out, "steady")
+
+        out["fft"] = _mnt_fft_check(dpk.domain, device, RECURSION_SEED)
+        g = dpk.domain.group_gen
+        if (g != ref.group_gen or pow(g, ref.size, c.r) != 1 or pow(g, ref.size // 2, c.r) == 1
+                or dpk.domain.evaluate_vanishing_polynomial(c.fr.generator)
+                != ref.evaluate_vanishing_polynomial(c.fr.generator)):
+            raise AssertionError("the 2^17 domain's root or vanishing polynomial differs from the exact domain's")
+        _step(out, "fft")
+
+        rows = {"mont_mul": _recursion_k1(dpk, z_enc),
+                **_point_kernels(dpk, c, widest, device, mixed=(False,)),
+                **_recorded_capture_steps(c, kept, device),
+                **_horner_kernels(_prove_horner_shapes(dpk), c, device)}
+        del kept
+        rows.update(_scalar_mul_kernels(lambda g_: _key_points(dpk, g_), c, device, rows, RECURSION_SEED,
+                                        extra_lanes=()))
+        out["kernels_at_n"] = {"add_g1": widest["add_g1"], "add_g2": widest["add_g2"],
+                               **{k: rows[k]["at_n"] for k in ("capture_step_g1", "capture_step_g2")}}
+    finally:
+        for proc, _ in children.values():
+            if proc.is_alive():
+                proc.terminate()
+            proc.join()
+    out["phase_s"] = time.time() - t_phase
+    _step(out, "kernels")
+    return ({"mnt_recursion": launches, "mnt_recursion_device_assembly": assembly,
+             "mnt_recursion_setup": setup_launches,
+             "mnt_recursion_inner": out["inner_proof"]["launches"],
+             "mnt_recursion_g1_add_circuit": out["g1_add_circuit"]["launches"]}, rows)
+
+
 VERIFY_REPS = 5
 
 
-def _verify_engines(vk, proof) -> dict:
-    """Seconds of one verify_proof (public input 15), the mean of
-    VERIFY_REPS, on the native engine and on the pure-Python engine (the
-    verifier's native_pairing hidden for the second); both must accept."""
+def _verify_engines(vk, proof, public=(15,), reps=VERIFY_REPS) -> dict:
+    """Seconds of one verify_proof (with `public`), the mean of `reps`,
+    on the native engine and on the pure-Python engine (the verifier's
+    native_pairing hidden for the second); both must accept."""
     from groth16_tpu_torch.protocol import verifier
 
     pvk = verifier.prepare_verifying_key(vk)
@@ -2607,8 +3092,8 @@ def _verify_engines(vk, proof) -> dict:
             verifier.native_pairing = lambda curve: None
         try:
             t0 = time.time()
-            ok = all(verifier.verify_proof(pvk, proof, [15]) for _ in range(VERIFY_REPS))
-            out[engine] = (time.time() - t0) / VERIFY_REPS
+            ok = all(verifier.verify_proof(pvk, proof, list(public)) for _ in range(reps))
+            out[engine] = (time.time() - t0) / reps
         finally:
             verifier.native_pairing = native
         if not ok:
@@ -2860,6 +3345,8 @@ def main() -> int:
     bw6, bw6_rows = phase_bw6(device)
     bls, bls_rows = phase_bls(device, k3_shape)
     mnt, mnt_k1, mnt_rows = phase_mnt(device)
+    recursion, recursion_rows = phase_mnt_recursion(device)
+    mnt.update(recursion)
     kernels = []
     for name, e in entries.items():
         by_path = {"main": launches.get(name, 0), "capture": capture.get(name, 0),
@@ -2871,7 +3358,7 @@ def main() -> int:
         for curve, other in ((B377_CURVE, b377_rows), (BW6_CURVE, bw6_rows), (BLS_CURVE, bls_rows),
                              ("sharded_2_ranks", multi_rows),
                              ("L21", mnt_k1), (MNT4_CURVE, mnt_rows[MNT4_CURVE]),
-                             (MNT6_CURVE, mnt_rows[MNT6_CURVE])):
+                             (MNT6_CURVE, mnt_rows[MNT6_CURVE]), ("mnt_recursion", recursion_rows)):
             if name in other:
                 e = dict(e, **{curve: {k: v for k, v in other[name].items() if k not in e or e[k] != v}})
         # the main path's launches, else those of the first path that ran it
@@ -2880,9 +3367,11 @@ def main() -> int:
         path = next((p for p, n in by_path.items() if n), "main")
         kernels.append(dict(e, launches=by_path[path], path=path, launches_by_path=by_path))
     # the generic-a capture step runs on the MNT proves alone: its row is
-    # MNT6-298's (the 2^20 prove's widest step), MNT4-298's beside it
+    # MNT6-298's (the 2^20 prove's widest step), MNT4-298's and the
+    # recursion prove's (its own rows) beside it
     for name in ("capture_step_g1", "capture_step_g2"):
-        e = dict(mnt_rows[MNT6_CURVE][name], **{MNT4_CURVE: mnt_rows[MNT4_CURVE][name]})
+        e = dict(mnt_rows[MNT6_CURVE][name], **{MNT4_CURVE: mnt_rows[MNT4_CURVE][name],
+                                               "mnt_recursion": recursion_rows[name]})
         by_path = {p: n.get(name, 0) for p, n in mnt.items()}
         kernels.append(dict(e, launches=by_path[MNT6_CURVE], path=MNT6_CURVE, launches_by_path=by_path))
     kernels += list(ubench_entries.values())
