@@ -1582,29 +1582,10 @@ def phase_reference(device, curve=CURVE, fused=(True,)):
           "msm_scans": ["fused" if f else "capture" for f in fused], "equal_to_exact_prover": True})
 
 
-def _counters():
-    from groth16_tpu_torch.curves import cuda_point
-    from groth16_tpu_torch.fields import cuda_fp
-    from groth16_tpu_torch.msm import cuda_scan
-    from groth16_tpu_torch.utils import ubench
-
-    return (cuda_fp, cuda_point, cuda_scan, ubench)
-
-
 def zero_counts():
-    from groth16_tpu_torch.curves import cuda_point
-    from groth16_tpu_torch.fields import cuda_fp
+    from groth16_tpu_torch.utils import profiling
 
-    for m in _counters():
-        for d in (m.LAUNCHES, m.PLAIN_CALLS):
-            for k in d:
-                d[k] = 0
-    for m in (cuda_fp, cuda_point):
-        for d in (*m.LAUNCH_SIZES.values(), m.LARGEST_LAUNCH):
-            for k in d:
-                d[k] = 0
-    for k in cuda_point.GENERAL_A_LAUNCHES:
-        cuda_point.GENERAL_A_LAUNCHES[k] = 0
+    profiling.reset_counts()
 
 
 def launch_sizes() -> dict:
@@ -1625,10 +1606,10 @@ def launch_sizes() -> dict:
 def read_counts(kernels) -> dict:
     """Launches per kernel since zero_counts(); raises if one of `kernels`
     never launched or a plain version ran on the card."""
-    launches, plain = {}, {}
-    for m in _counters():
-        launches.update(m.LAUNCHES)
-        plain.update(m.PLAIN_CALLS)
+    from groth16_tpu_torch.utils import profiling
+
+    snap = profiling.snapshot()
+    launches, plain = snap["launches"], snap["plain"]
     if not all(launches[k] > 0 for k in kernels):
         raise AssertionError(f"a kernel of the path never launched: {launches}")
     if any(plain.values()):

@@ -33,6 +33,7 @@ from groth16_tpu_torch.curves.params import FieldParams
 from groth16_tpu_torch.fields import fp
 from groth16_tpu_torch.fields.spec import FpSpec, encode, make_spec
 from groth16_tpu_torch.ref.domain import _element_of_order, _smooth_sizes
+from groth16_tpu_torch.utils import profiling
 
 
 def _enc(values, spec: FpSpec, device) -> torch.Tensor:
@@ -231,18 +232,20 @@ class NttDomain:
         Montgomery form; shorter inputs must be pre-padded by the caller."""
         a = coeffs
         assert a.shape[-1] == self.size
-        if offset != 1:
-            a = fp.mont_mul(self.spec, a, self._offset_powers(offset))
-        return self._core(a, fwd=True)
+        with profiling.span("ntt"):
+            if offset != 1:
+                a = fp.mont_mul(self.spec, a, self._offset_powers(offset))
+            return self._core(a, fwd=True)
 
     def ifft(self, evals: torch.Tensor, offset: int = 1) -> torch.Tensor:
         spec = self.spec
-        a = self._core(evals, fwd=False)
-        a = fp.mont_mul(spec, a, fp.const(spec, self.size_inv, (1,), device=a.device))
-        if offset != 1:
-            p = self.field.modulus
-            a = fp.mont_mul(spec, a, self._offset_powers(pow(offset, p - 2, p)))
-        return a
+        with profiling.span("ntt"):
+            a = self._core(evals, fwd=False)
+            a = fp.mont_mul(spec, a, fp.const(spec, self.size_inv, (1,), device=a.device))
+            if offset != 1:
+                p = self.field.modulus
+                a = fp.mont_mul(spec, a, self._offset_powers(pow(offset, p - 2, p)))
+            return a
 
     def coset_fft(self, coeffs: torch.Tensor) -> torch.Tensor:
         """Evaluations on GENERATOR*H (r1cs_to_qap.rs:204-207)."""

@@ -31,6 +31,7 @@ from groth16_tpu_torch.par.collectives import all_gather_leaves
 from groth16_tpu_torch.par.mesh import DATA_AXIS
 from groth16_tpu_torch.protocol.data_structures import Proof
 from groth16_tpu_torch.protocol.prover_torch import TorchProver, decode_proof_arrays
+from groth16_tpu_torch.utils import profiling
 
 
 def prove_batch_sharded(
@@ -76,13 +77,20 @@ class ProofStream:
     def prove_all(self, jobs: Iterable[tuple[Sequence[int], int, int]]) -> Iterator[Proof]:
         """jobs: iterable of (full_assignment, r, s).  Yields proofs in
         order, with at most `depth` proofs enqueued ahead of the host
-        decode position."""
+        decode position.  Each job's spans (utils/profiling) carry its own
+        id: the encode and dispatch of job i + depth and the fetch of job
+        i are told apart."""
         pending: deque = deque()
         for assignment, r, s in jobs:
             rr = self.prover.c.r
-            z = self.prover.encode_assignment(assignment)
-            pending.append(self.prover.prove_encoded(z, r % rr, s % rr))  # no host sync yet
+            with profiling.job() as i:
+                z = self.prover.encode_assignment(assignment)
+                pending.append((i, self.prover.prove_encoded(z, r % rr, s % rr)))  # no host sync yet
             if len(pending) > self.depth:
-                yield decode_proof_arrays(self.prover.curve, pending.popleft())
+                yield self._decode(*pending.popleft())
         while pending:
-            yield decode_proof_arrays(self.prover.curve, pending.popleft())
+            yield self._decode(*pending.popleft())
+
+    def _decode(self, i, out) -> Proof:
+        with profiling.job(i):
+            return decode_proof_arrays(self.prover.curve, out)

@@ -33,35 +33,22 @@ from groth16_tpu_torch.msm.pippenger import msm_device_lanes
 from groth16_tpu_torch.ntt.ntt import NttDomain
 from groth16_tpu_torch.par import collectives
 from groth16_tpu_torch.par.mesh import DATA_AXIS, make_mesh, make_mesh_2d, run_ranks, shard_elements
+from groth16_tpu_torch.utils import profiling
 from groth16_tpu_torch.utils.profiling import PhaseTimer
 
 CURVE = "bn254"
 
 
-def _counters():
-    from groth16_tpu_torch.curves import cuda_point
-    from groth16_tpu_torch.fields import cuda_fp
-    from groth16_tpu_torch.msm import cuda_scan
-
-    return (cuda_fp, cuda_point, cuda_scan)
-
-
 def zero_counts() -> None:
-    """Set this process's launch and plain-version counters to 0."""
-    for m in _counters():
-        for d in (m.LAUNCHES, m.PLAIN_CALLS):
-            for k in d:
-                d[k] = 0
+    """Set this process's counters to 0 (utils/profiling.reset_counts)."""
+    profiling.reset_counts()
 
 
 def read_counts() -> dict:
     """{"launches": kernel -> count, "plain": kernel -> plain-version
     calls} since zero_counts(), copies of this process's counters."""
-    out = {"launches": {}, "plain": {}}
-    for m in _counters():
-        out["launches"].update(m.LAUNCHES)
-        out["plain"].update(m.PLAIN_CALLS)
-    return out
+    snap = profiling.snapshot()
+    return {"launches": snap["launches"], "plain": snap["plain"]}
 
 
 def _key_shard(dpk) -> dict:

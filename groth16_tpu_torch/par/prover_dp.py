@@ -39,7 +39,6 @@ from groth16_tpu_torch.par.ntt_cp import ShardedNtt
 from groth16_tpu_torch.protocol.data_structures import Proof, ProvingKey
 from groth16_tpu_torch.protocol.device_keys import DeviceProvingKey, upload_proving_key
 from groth16_tpu_torch.protocol.prover_torch import (
-    _phase,
     assembly_phase,
     decode_proof_arrays,
     encode_assignment,
@@ -47,6 +46,7 @@ from groth16_tpu_torch.protocol.prover_torch import (
 )
 from groth16_tpu_torch.qap.device import rows_window, witness_map_device
 from groth16_tpu_torch.r1cs.matrices import ConstraintMatrices
+from groth16_tpu_torch.utils import profiling
 
 
 def msm_sharded_lanes(
@@ -146,16 +146,16 @@ class ShardedProver:
         r %= rr
         s %= rr
         z_mont = self.encode_assignment(full_assignment)
-        with _phase(timer, "witness_map"):
+        with profiling.span("witness_map", timer):
             scalars4, rho_std = _g1_scalar_stack(
                 self.fr, self.sntt, self.mesh, self.axis, dpk, z_mont, dpk.num_inputs
             )
-        with _phase(timer, "msm_g1_x4"):
+        with profiling.span("msm_g1_x4", timer):
             acc4 = msm_sharded_lanes(
                 codec.g1_ops(c), dpk.g1_msm_points, scalars4, rr.bit_length(), self.mesh, self.axis
             )
-        with _phase(timer, "msm_g2"):
+        with profiling.span("msm_g2", timer):
             b2_acc = _msm_g2(dpk, rho_std, self.mesh, self.axis)
-        with _phase(timer, "assembly"):
+        with profiling.span("assembly", timer):
             out = assembly_phase(dpk, acc4, b2_acc, scalar_bits([r, s, r * s % rr], self.device))
         return decode_proof_arrays(self.curve, out)

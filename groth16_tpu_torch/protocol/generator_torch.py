@@ -23,7 +23,6 @@ passes device="cpu".
 
 from __future__ import annotations
 
-import contextlib
 from typing import Callable, Optional
 
 import torch
@@ -41,6 +40,7 @@ from groth16_tpu_torch.qap.reduction import LibsnarkReduction
 from groth16_tpu_torch.r1cs.system import ConstraintSystem, SynthesisError, SynthesisMode
 from groth16_tpu_torch.ref.curve import RefGroups
 from groth16_tpu_torch.ref.domain import RefDomain
+from groth16_tpu_torch.utils import profiling
 from groth16_tpu_torch.utils.rng import Rng
 
 
@@ -52,10 +52,6 @@ def _window_bits(num_scalars: int) -> int:
         if best_cost is None or cost < best_cost:
             best, best_cost = c, cost
     return best
-
-
-def _phase(timer, name: str):
-    return timer.phase(name) if timer is not None else contextlib.nullcontext()
 
 
 def _device_setup_scalars(
@@ -158,7 +154,7 @@ def generate_parameters_with_qap_device(
     fr = c.fr
     fr_spec = make_spec(r, name=f"{curve}.Fr")
 
-    with _phase(timer, "synthesis"):
+    with profiling.span("synthesis", timer):
         cs = ConstraintSystem(r, mode=SynthesisMode.SETUP)
         circuit(cs)
         matrices = cs.to_matrices()
@@ -177,7 +173,7 @@ def generate_parameters_with_qap_device(
     log_n = domain.size.bit_length() - 1
     # the device Lagrange identity holds on radix-2 domains only
     device_qap = qap is LibsnarkReduction and domain.size == 1 << log_n and log_n <= fr.two_adicity
-    with _phase(timer, "scalars"):
+    with profiling.span("scalars", timer):
         if device_qap:
             ndom = NttDomain(fr, cs.num_constraints + num_instance, dev)
             n_scalars, counts, g1_std, g2_std = _device_setup_scalars(
@@ -200,7 +196,7 @@ def generate_parameters_with_qap_device(
     # own length
     cw = _window_bits(max(n_scalars, 1))
     num_windows = -(-bits // cw)
-    with _phase(timer, "tables"):
+    with profiling.span("tables", timer):
         groups = RefGroups(curve)
         table_g1 = build_window_table(
             g1, codec.g1_to_device(c, window_bases(groups.g1_add, g1_generator, cw, num_windows), dev), cw
@@ -210,10 +206,10 @@ def generate_parameters_with_qap_device(
         )
     # ONE G1 call and ONE G2 call cover every query (generator.rs:129-183's
     # six batch_muls share the generators)
-    with _phase(timer, "batch_mul"):
+    with profiling.span("batch_mul", timer):
         g1_dev = batch_mul_device(g1, table_g1, g1_std, cw, bits)
         g2_dev = batch_mul_device(g2, table_g2, g2_std, cw, bits)
-    with _phase(timer, "decode"):
+    with profiling.span("decode", timer):
         g1_pts = codec.g1_from_device(c, g1, g1_dev)
         g2_pts = codec.g2_from_device(c, g2, g2_dev)
     del g1_dev, g2_dev

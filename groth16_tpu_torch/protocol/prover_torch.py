@@ -28,11 +28,16 @@ the first fetch: nothing on that stretch waits for the card (the
 assignments go up from pinned buffers), so the host encodes proof i + 1
 while the card works on proof i.  The prover runs on the card unless the
 caller passes device="cpu" (where every kernel runs its plain version).
+
+Spans (utils/profiling.span; recorded only inside `profiling.tracing`):
+`encode` (encode_assignment), the four phases above, `fetch` (the one
+blocking device-to-host copy), and below them `matvec`
+(qap/device.sparse_matvec) and `ntt` (ntt/ntt.NttDomain.fft, .ifft).
+`upload` counts the bytes it sends in TRANSFERS["h2d_bytes"].
 """
 
 from __future__ import annotations
 
-import contextlib
 from typing import List, Sequence
 
 import numpy as np
@@ -48,6 +53,10 @@ from groth16_tpu_torch.protocol.data_structures import Proof, ProvingKey
 from groth16_tpu_torch.protocol.device_keys import DeviceProvingKey, upload_proving_key
 from groth16_tpu_torch.qap.device import witness_map_device
 from groth16_tpu_torch.r1cs.matrices import ConstraintMatrices
+from groth16_tpu_torch.utils import profiling
+
+# bytes handed to `upload`, on every device (utils/profiling.snapshot)
+TRANSFERS = {"h2d_bytes": 0}
 
 
 def upload(host: torch.Tensor, device: torch.device) -> torch.Tensor:
@@ -56,6 +65,7 @@ def upload(host: torch.Tensor, device: torch.device) -> torch.Tensor:
     the work already there.  PyTorch's caching host allocator records an
     event on the stream for each such copy and keeps the pinned block
     from reuse until it has passed, so the buffer outlives its copy."""
+    TRANSFERS["h2d_bytes"] += host.numel() * host.element_size()
     if device.type != "cuda":
         return host.to(device)
     return host.pin_memory().to(device, non_blocking=True)
@@ -78,7 +88,8 @@ def fetch(tensors) -> list:
     """numpy copies of device tensors in ONE device-to-host copy (bool
     tensors come back as bool)."""
     tensors = list(tensors)
-    flat = torch.cat([x.reshape(-1).to(torch.int32) for x in tensors]).cpu().numpy()
+    with profiling.span("fetch"):
+        flat = torch.cat([x.reshape(-1).to(torch.int32) for x in tensors]).cpu().numpy()
     out, off = [], 0
     for x in tensors:
         part = flat[off : off + x.numel()].reshape(tuple(x.shape))
@@ -187,20 +198,15 @@ def assembly_phase(dpk: DeviceProvingKey, acc4, b2_acc, bits: torch.Tensor):
     return (ax, ay, ainf, bx, by, binf)
 
 
-def _phase(timer, name):
-    """timer.phase(name), or no fence where there is no timer."""
-    return contextlib.nullcontext() if timer is None else timer.phase(name)
-
-
 def msm_phases(dpk: DeviceProvingKey, z_mont: torch.Tensor, timer=None):
     """Phases 1-2 (witness map | MSMs) -> the G1 accumulators ([..., 4])
     and the G2 one, left on the device.  timer: optional
     utils.profiling.PhaseTimer; each phase is then fenced and timed."""
-    with _phase(timer, "witness_map"):
+    with profiling.span("witness_map", timer):
         scalars_g, rho_std = witness_phase(dpk, z_mont)
-    with _phase(timer, "msm_g1_x4"):
+    with profiling.span("msm_g1_x4", timer):
         acc4 = msm_g1_phase(dpk, scalars_g)
-    with _phase(timer, "msm_g2"):
+    with profiling.span("msm_g2", timer):
         b2_acc = msm_g2_phase(dpk, rho_std)
     return acc4, b2_acc
 
@@ -209,7 +215,7 @@ def prove_phases(dpk: DeviceProvingKey, z_mont: torch.Tensor, bits: torch.Tensor
     """The full prove on the device, every intermediate left there; ->
     assembly_phase's six tensors (timer as for msm_phases)."""
     acc4, b2_acc = msm_phases(dpk, z_mont, timer)
-    with _phase(timer, "assembly"):
+    with profiling.span("assembly", timer):
         return assembly_phase(dpk, acc4, b2_acc, bits)
 
 
@@ -306,14 +312,16 @@ class TorchProver:
         self.dpk = upload_proving_key(pk, matrices, self.device)
 
     def encode_assignment(self, full_assignment: List[int]) -> torch.Tensor:
-        return encode_assignment(self.fr, full_assignment, self.device)
+        with profiling.span("encode"):
+            return encode_assignment(self.fr, full_assignment, self.device)
 
     def prove(self, full_assignment: List[int], r: int, s: int, timer=None,
               host_assembly: bool = True) -> Proof:
-        z = self.encode_assignment(full_assignment)
-        if host_assembly:
-            return self.prove_encoded_host(z, r, s, timer=timer)
-        return decode_proof_arrays(self.curve, self.prove_encoded(z, r, s, timer=timer))
+        with profiling.job():
+            z = self.encode_assignment(full_assignment)
+            if host_assembly:
+                return self.prove_encoded_host(z, r, s, timer=timer)
+            return decode_proof_arrays(self.curve, self.prove_encoded(z, r, s, timer=timer))
 
     def prove_encoded_host(self, z_mont: torch.Tensor, r: int, s: int, timer=None) -> Proof:
         """Device witness map + MSMs, host O(1) assembly: the single-proof
@@ -322,7 +330,7 @@ class TorchProver:
         fenced and timed."""
         rr = self.c.r
         acc4, b2_acc = msm_phases(self.dpk, z_mont, timer)
-        with _phase(timer, "assembly"):
+        with profiling.span("assembly", timer):
             return self._assemble(acc4, b2_acc, r % rr, s % rr)
 
     def prove_encoded(self, z_mont: torch.Tensor, r: int, s: int, timer=None):

@@ -26,6 +26,7 @@ from groth16_tpu_torch.fields import fp
 from groth16_tpu_torch.fields.spec import FpSpec, encode
 from groth16_tpu_torch.ntt.ntt import NttDomain
 from groth16_tpu_torch.r1cs.matrices import ConstraintMatrices, FlatMatrix
+from groth16_tpu_torch.utils import profiling
 
 
 @dataclasses.dataclass
@@ -87,19 +88,20 @@ def encode_matrices(matrices: ConstraintMatrices, fr: FpSpec, device="cuda"):
 
 def sparse_matvec(spec: FpSpec, dm: DeviceMatrix, z: torch.Tensor) -> torch.Tensor:
     """rows_i = <matrix_i, z> mod p -> int32[L, num_rows] Montgomery (< 2p)."""
-    v = fp.mont_mul(spec, dm.coeffs, z[:, dm.cols])
-    f = dm.seg_start
-    d = 1
-    while d < dm.max_row_len:
-        # combine(earlier, current) of the JAX scan: keep current at a
-        # segment start, else add the earlier partial sum
-        sv = torch.cat([torch.zeros_like(v[:, :d]), v[:, :-d]], dim=1)
-        sf = torch.cat([torch.ones_like(f[:d]), f[:-d]])
-        v = fp.select(f, v, fp.add_strict(spec, sv, v))
-        f = f | sf
-        d <<= 1
-    sums = v[:, dm.end_idx]
-    return fp.select(dm.nonempty, sums, fp.zeros(spec, (dm.num_rows,), device=z.device))
+    with profiling.span("matvec"):
+        v = fp.mont_mul(spec, dm.coeffs, z[:, dm.cols])
+        f = dm.seg_start
+        d = 1
+        while d < dm.max_row_len:
+            # combine(earlier, current) of the JAX scan: keep current at a
+            # segment start, else add the earlier partial sum
+            sv = torch.cat([torch.zeros_like(v[:, :d]), v[:, :-d]], dim=1)
+            sf = torch.cat([torch.ones_like(f[:d]), f[:-d]])
+            v = fp.select(f, v, fp.add_strict(spec, sv, v))
+            f = f | sf
+            d <<= 1
+        sums = v[:, dm.end_idx]
+        return fp.select(dm.nonempty, sums, fp.zeros(spec, (dm.num_rows,), device=z.device))
 
 
 def rows_window(x: torch.Tensor, lo: int, hi: int) -> torch.Tensor:

@@ -1,17 +1,28 @@
 """Phase timers (the ark_std start_timer!/end_timer! analog of the
-reference prover, prover.rs:35-125) and speed-of-light operation counts.
+reference prover, prover.rs:35-125), the program's span recorder, its
+counters, and speed-of-light operation counts.
 
 Port of `PhaseTimer` and the speed-of-light helpers of
 `groth16_tpu/utils/profiling.py`.  PyTorch returns before the card
 finishes, so on a CUDA device every phase is fenced with
 `torch.cuda.synchronize()` at its start and its end.
+
+`span(name, timer)` is the one way the program marks a phase or a layer:
+with a PhaseTimer it fences and times as `timer.phase(name)`; inside
+`with tracing() as rec:` it also records (name, start_ns, end_ns,
+parent, proof) in `rec.spans`, without a fence, on `time.time_ns()`, the
+clock torch.profiler stamps host and device events on; otherwise it is a
+shared null context.  Nothing is written anywhere: the spans and the
+counters' deltas (`rec.counts`) are handed over when the block ends.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import itertools
 import sys
+import threading
 import time
 from typing import Dict, List
 
@@ -43,6 +54,178 @@ class PhaseTimer:
 
     def as_dict(self) -> Dict[str, float]:
         return {k: v for k, v in self.records}
+
+
+# -- spans ---------------------------------------------------------------------
+
+# the Recorder that `tracing` switched on, else None
+_RECORDER = None
+NULL_SPAN = contextlib.nullcontext()
+
+
+class Recorder:
+    """The spans of one `tracing` block: `spans`, a list of (name,
+    start_ns, end_ns, parent, proof), where parent is the index of the
+    span open around it on the same thread (None at a root) and proof the
+    id of the job it belongs to: a root span takes that of the `job` block
+    it is opened in, a child its parent's.  `counts`: the counters'
+    change over the block (`counts_since`), once it has ended."""
+
+    def __init__(self):
+        self.spans: list = []
+        self.counts: dict = {}
+        self._local = threading.local()
+        self._lock = threading.Lock()
+        self._ids = itertools.count()
+
+    def _stack(self, key: str) -> list:
+        return self._local.__dict__.setdefault(key, [])
+
+    def open(self, name: str) -> int:
+        stack = self._stack("spans")
+        if stack:
+            parent = stack[-1]
+            proof = self.spans[parent][4]
+        else:
+            jobs = self._stack("jobs")
+            parent, proof = None, (jobs[-1] if jobs else None)
+        with self._lock:
+            i = len(self.spans)
+            self.spans.append([name, time.time_ns(), None, parent, proof])
+        stack.append(i)
+        return i
+
+    def close(self, i: int) -> None:
+        self.spans[i][2] = time.time_ns()
+        self._stack("spans").pop()
+
+
+class _Span:
+    __slots__ = ("rec", "name", "i")
+
+    def __init__(self, rec: Recorder, name: str):
+        self.rec, self.name = rec, name
+
+    def __enter__(self):
+        self.i = self.rec.open(self.name)
+
+    def __exit__(self, *exc):
+        self.rec.close(self.i)
+        return False
+
+
+class _Job:
+    __slots__ = ("rec", "proof")
+
+    def __init__(self, rec: Recorder, proof):
+        self.rec, self.proof = rec, proof
+
+    def __enter__(self):
+        if self.proof is None:
+            self.proof = next(self.rec._ids)
+        self.rec._stack("jobs").append(self.proof)
+        return self.proof
+
+    def __exit__(self, *exc):
+        self.rec._stack("jobs").pop()
+        return False
+
+
+@contextlib.contextmanager
+def _fenced(timer, rec: Recorder, name: str):
+    with timer.phase(name), _Span(rec, name):
+        yield
+
+
+def span(name: str, timer=None):
+    """A context that marks `name`: timed and fenced by `timer` (a
+    PhaseTimer) where one is given, recorded where `tracing` is on, else
+    the shared null context."""
+    rec = _RECORDER
+    if timer is None:
+        return NULL_SPAN if rec is None else _Span(rec, name)
+    return timer.phase(name) if rec is None else _fenced(timer, rec, name)
+
+
+def job(proof=None):
+    """A context for one job (one proof): the root spans opened in it on
+    this thread carry its id, `proof` or the recorder's next number; ->
+    the id (None where `tracing` is off)."""
+    rec = _RECORDER
+    return NULL_SPAN if rec is None else _Job(rec, proof)
+
+
+@contextlib.contextmanager
+def tracing():
+    """Record the program's spans for the block: -> the Recorder, whose
+    `spans` become tuples and whose `counts` are filled when the block
+    ends."""
+    global _RECORDER
+    if _RECORDER is not None:
+        raise RuntimeError("tracing is on already")
+    rec = Recorder()
+    before = snapshot()
+    _RECORDER = rec
+    try:
+        yield rec
+    finally:
+        _RECORDER = None
+        rec.counts = counts_since(before)
+        rec.spans = [tuple(s) for s in rec.spans]
+
+
+# -- counters ------------------------------------------------------------------
+#
+# Each kernel module counts its own launches and plain-version calls in
+# module dicts (LAUNCHES, PLAIN_CALLS; cuda_point's GENERAL_A_LAUNCHES;
+# K1's and the group kernels' LAUNCH_SIZES and LARGEST_LAUNCH), and
+# protocol/prover_torch.upload the bytes it sends to the device
+# (TRANSFERS).  These read and reset them all.
+
+
+def _counter_modules():
+    from groth16_tpu_torch.curves import cuda_point
+    from groth16_tpu_torch.fields import cuda_fp
+    from groth16_tpu_torch.msm import cuda_scan
+    from groth16_tpu_torch.protocol import prover_torch
+    from groth16_tpu_torch.utils import ubench
+
+    return cuda_fp, cuda_point, cuda_scan, ubench, prover_torch
+
+
+def reset_counts() -> None:
+    """Set every counter of this process to 0."""
+    cuda_fp, cuda_point, cuda_scan, ubench, prover_torch = _counter_modules()
+    dicts = [m.LAUNCHES for m in (cuda_fp, cuda_point, cuda_scan, ubench)]
+    dicts += [m.PLAIN_CALLS for m in (cuda_fp, cuda_point, cuda_scan, ubench)]
+    for m in (cuda_fp, cuda_point):
+        dicts += [*m.LAUNCH_SIZES.values(), m.LARGEST_LAUNCH]
+    dicts += [cuda_point.GENERAL_A_LAUNCHES, prover_torch.TRANSFERS]
+    for d in dicts:
+        for k in d:
+            d[k] = 0
+
+
+def snapshot() -> dict:
+    """Copies of the counters: {"launches": kernel -> launches, "plain":
+    kernel -> plain-version calls, "general_a": generic-a kernel and
+    degree -> launches, "h2d_bytes": bytes uploaded}."""
+    cuda_fp, cuda_point, cuda_scan, ubench, prover_torch = _counter_modules()
+    out = {"launches": {}, "plain": {}}
+    for m in (cuda_fp, cuda_point, cuda_scan, ubench):
+        out["launches"].update(m.LAUNCHES)
+        out["plain"].update(m.PLAIN_CALLS)
+    out["general_a"] = dict(cuda_point.GENERAL_A_LAUNCHES)
+    out["h2d_bytes"] = prover_torch.TRANSFERS["h2d_bytes"]
+    return out
+
+
+def counts_since(before: dict) -> dict:
+    """snapshot() now less `before`, key by key."""
+    def less(now, then):
+        return now - then if isinstance(now, int) else {k: v - then.get(k, 0) for k, v in now.items()}
+
+    return {k: less(v, before[k]) for k, v in snapshot().items()}
 
 
 # -- speed-of-light models ------------------------------------------------------
